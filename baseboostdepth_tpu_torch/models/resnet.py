@@ -1,0 +1,126 @@
+"""ResNet-18 encoder (Monodepth2 zoo) in PyTorch, the counterpart of
+`baseboostdepth_tpu/models/resnet.py`.
+
+Module names follow the reference's torch modules (networks/
+resnet_encoder.py:12-91, a torchvision ResNet under `.encoder`: `conv1`,
+`bn1`, `layer1.0.conv1`, `layer2.0.downsample.0/1`, ...), so a published
+`encoder.pth` / `pose_encoder.pth` loads with `load_state_dict`. Inputs are
+NCHW (a channels-last view of the NHWC images is fine).
+
+BatchNorm keeps the JAX package's numbers: momentum 0.1 here is flax's 0.9,
+statistics are reduced in float32 whatever the compute dtype, and the
+running variance takes the *biased* batch variance (nn.BatchNorm2d would
+take the unbiased one).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_BN_MOMENTUM = 0.1  # torch convention; flax momentum 0.9
+_BN_EPS = 1e-5
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d with flax's running-statistics update (biased batch
+    variance, float32 statistics)."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=_BN_EPS, momentum=_BN_MOMENTUM)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight, self.bias,
+                False, 0.0, self.eps,
+            )
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class BasicBlock(nn.Module):
+    """ResNet-18/34 block: 3x3 -> 3x3 with identity/projection skip."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = BatchNorm2d(planes)
+        self.downsample: Optional[nn.Sequential] = None
+        if stride != 1 or inplanes != planes:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(inplanes, planes, 1, stride, bias=False), BatchNorm2d(planes)
+            )
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        return F.relu(y + identity)
+
+
+class ResNet(nn.Module):
+    """The torchvision ResNet-18 trunk the reference taps (no pool/fc head)."""
+
+    def __init__(self, in_channels: int = 3):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
+        self.bn1 = BatchNorm2d(64)
+        inplanes = 64
+        for li, w in enumerate((64, 128, 256, 512), start=1):
+            blocks = []
+            for bi in range(2):  # ResNet-18: two blocks per layer
+                stride = 2 if (bi == 0 and li > 1) else 1
+                blocks.append(BasicBlock(inplanes, w, stride))
+                inplanes = w
+            setattr(self, f"layer{li}", nn.Sequential(*blocks))
+
+
+#: feature channels of the 5 taps (reference resnet_encoder.py:63)
+NUM_CH_ENC = (64, 64, 128, 256, 512)
+
+
+class ResnetEncoder(nn.Module):
+    """Multi-scale feature encoder: images [B, 3*num_input_images, H, W] ->
+    5 feature maps at strides 2, 4, 8, 16, 32."""
+
+    def __init__(self, num_layers: int = 18, num_input_images: int = 1):
+        super().__init__()
+        if num_layers != 18:
+            raise NotImplementedError(
+                f"ResNet-{num_layers} is not ported yet (ROADMAP.md, next slice 6: "
+                "the other zoos); the md2 main path uses ResNet-18"
+            )
+        self.num_ch_enc = NUM_CH_ENC
+        self.encoder = ResNet(3 * num_input_images)
+
+    def forward(self, x: torch.Tensor):
+        e = self.encoder
+        x = (x - 0.45) / 0.225
+        f0 = F.relu(e.bn1(e.conv1(x)))
+        x = F.max_pool2d(f0, 3, 2, 1)  # implicit -inf padding
+        feats = [f0]
+        for layer in (e.layer1, e.layer2, e.layer3, e.layer4):
+            x = layer(x)
+            feats.append(x)
+        return feats
+
+
+def init_encoder_(enc: ResnetEncoder, generator: torch.Generator) -> None:
+    """torchvision's init: kaiming_normal(fan_out, relu) convs, BN (1, 0)."""
+    for m in enc.modules():
+        if isinstance(m, nn.Conv2d):
+            nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu",
+                                    generator=generator)
+        elif isinstance(m, nn.BatchNorm2d):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
