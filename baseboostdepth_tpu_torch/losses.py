@@ -32,17 +32,24 @@ def slot_losses(
     images: torch.Tensor,
     slot_valid: torch.Tensor,
     use_ssim: bool = True,
+    photo_fn=None,
+    impl: str = "xla",
 ) -> torch.Tensor:
     """Photometric loss of each slot image against the shared target.
 
     target [B, H, W, 3], images [B, S, H, W, 3], slot_valid [B, S] bool ->
-    [B, S, H, W], _MASKED where invalid.
+    [B, S, H, W], _MASKED where invalid. photo_fn: an optional
+    (pred, target) -> [N, H, W, 1] that replaces `reprojection_loss`;
+    impl: `reprojection_loss`'s impl ("xla", "fused" or "auto").
     """
     B, S = images.shape[:2]
     tgt = target[:, None].expand(images.shape)
     flat_pred = images.reshape(B * S, *images.shape[2:])
     flat_tgt = tgt.reshape(B * S, *images.shape[2:])
-    pe = reprojection_loss(flat_pred, flat_tgt, use_ssim=use_ssim)[..., 0]
+    if photo_fn is not None:
+        pe = photo_fn(flat_pred, flat_tgt)[..., 0]
+    else:
+        pe = reprojection_loss(flat_pred, flat_tgt, use_ssim=use_ssim, impl=impl)[..., 0]
     pe = pe.reshape(B, S, *pe.shape[1:])
     return torch.where(slot_valid[:, :, None, None], pe, pe.new_tensor(_MASKED))
 

@@ -30,12 +30,11 @@
 #include <stdint.h>
 #include <limits.h>
 
+#include "rgb_texel.cuh"
+
 namespace {
 
-__device__ __forceinline__ int32_t load_rgb(const uint8_t* __restrict__ img, int64_t pix) {
-  const uint8_t* p = img + pix * 3;
-  return (int32_t)__ldg(p) | ((int32_t)__ldg(p + 1) << 8) | ((int32_t)__ldg(p + 2) << 16);
-}
+using bbd::load_rgb;
 
 __global__ void corner_sweep_u8_kernel(const uint8_t* __restrict__ frames,
                                        const float* __restrict__ px,
@@ -84,8 +83,4 @@ extern "C" int bbd_corner_sweep_u8(const void* frames, const void* px, const voi
       (const uint8_t*)frames, (const float*)px, (const float*)py, (int32_t*)out,
       total, H, W, hw_out);
   return (int)cudaGetLastError();
-}
-
-extern "C" const char* bbd_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
 }

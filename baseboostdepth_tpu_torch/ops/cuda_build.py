@@ -1,11 +1,16 @@
 """Build the port's CUDA sources at first use and load them with ctypes.
 
-Each library is one `nvcc` call over sources with a plain C interface (no
-PyTorch headers, so a build takes seconds) for `sm_90a`. The
-shared object lands in `build/torch_ext/` at the root of the checkout (listed
-in .gitignore), named by a hash of its sources and flags, so an edited source
-is rebuilt and an unchanged one is reused. A failed build raises; nothing
-falls back to a plain version.
+Each module's kernels are one library: one `nvcc` call over its sources,
+which have a plain C interface (no PyTorch headers, so a build takes
+seconds), for `sm_90a`. The shared object lands in `build/torch_ext/` at the
+root of the checkout (listed in .gitignore), named by a hash of its sources,
+of every shared header (`csrc/*.cuh`) and of the flags, so an edited source
+or header is rebuilt and an unchanged one is reused. A failed build raises;
+nothing falls back to a plain version.
+
+FMA contraction is off (`-fmad=false`): each kernel repeats its plain
+PyTorch version's float32 expressions in the same order, and without
+contraction the two round alike.
 """
 
 from __future__ import annotations
@@ -24,11 +29,14 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
     "-O3",
+    "-fmad=false",
     "-Xptxas=-v",
     "-shared",
     "-Xcompiler",
     "-fPIC",
 )
+# linked into every library: bbd_cuda_error_string, for check_launch
+COMMON_SOURCES = ("cuda_error.cu",)
 
 
 def _nvcc() -> str:
@@ -41,19 +49,24 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _source_paths(sources: tuple) -> list:
+    return [CSRC_DIR / s for s in (*sources, *COMMON_SOURCES)]
+
+
 def _lib_path(name: str, sources: tuple) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
-        digest.update((CSRC_DIR / s).read_bytes())
+    for path in _source_paths(sources) + sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 @functools.cache
 def load_library(name: str, sources: tuple) -> ctypes.CDLL:
-    """Compile `sources` (file names under csrc/) into lib<name>_<hash>.so,
-    once per content, and load it. The build log (ptxas register and
-    shared-memory report included) is kept beside it as <same name>.log."""
-    paths = [CSRC_DIR / s for s in sources]
+    """Compile `sources` (file names under csrc/) and COMMON_SOURCES into
+    lib<name>_<hash>.so, once per content, and load it. The build log (ptxas
+    register and shared-memory report included) is kept beside it as <same
+    name>.log."""
+    paths = _source_paths(sources)
     so = _lib_path(name, sources)
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -64,7 +77,17 @@ def load_library(name: str, sources: tuple) -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {name}:\n{proc.stderr}")
         os.replace(tmp, so)
-    return ctypes.CDLL(str(so))
+    lib = ctypes.CDLL(str(so))
+    lib.bbd_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.bbd_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launcher returned a cudaError_t other than 0."""
+    if err != 0:
+        msg = lib.bbd_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
 
 def build_log(name: str, sources: tuple) -> str:

@@ -12,7 +12,10 @@ from __future__ import annotations
 import torch
 
 from baseboostdepth_tpu_torch.ops import clip
-from baseboostdepth_tpu_torch.ops.warp_cuda import bilinear_sample_corner_u8
+from baseboostdepth_tpu_torch.ops.warp_cuda import (
+    bilinear_sample_corner_u8,
+    bilinear_sample_packed_u8,
+)
 
 
 def bilinear_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
@@ -57,18 +60,28 @@ def bilinear_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, Ho, Wo, C)
 
 
-def resolve_warp(sources: torch.Tensor):
-    """The training step's warp for `sources` [..., H, W, 3].
+def resolve_warp(sources: torch.Tensor, impl: str = "auto"):
+    """The training step's warp for `sources` [..., H, W, 3], from
+    StepStatic.warp_impl.
 
-    uint8 frames: the corner-plane warp (ops/warp_cuda.py), which launches
-    the CUDA kernel for CUDA tensors and runs its plain version for CPU
-    tensors. Float sources need the float-planes kernel pair, not ported
-    yet. The plain `bilinear_sample` above is the kernels' yardstick in the
-    tests and never the step's warp.
+    uint8 frames: "auto" or "corner" -> the corner-plane warp
+    (`bilinear_sample_corner_u8`), "pallas" -> the packed warp
+    (`bilinear_sample_packed_u8`); both in ops/warp_cuda.py, which launch
+    their CUDA kernels for CUDA tensors and run their plain versions for CPU
+    tensors. "xla" raises: it would run the plain `bilinear_sample` above on
+    the card, and that is the kernels' yardstick in the tests, never the
+    step's warp. Float sources need the float-planes kernel pair, not ported
+    yet.
     """
+    if impl not in ("auto", "corner", "pallas"):
+        raise ValueError(
+            f"warp_impl {impl!r}: the step's warps are 'auto' / 'corner' (the "
+            f"corner-plane kernel) and 'pallas' (the packed kernel pair); the plain "
+            f"float gather ('xla') is not a warp of the step"
+        )
     if sources.dtype != torch.uint8:
         raise NotImplementedError(
             "the kernel warp of float sources (float-planes warp pair) is not "
             "ported yet: ROADMAP.md queue B, item B4"
         )
-    return bilinear_sample_corner_u8
+    return bilinear_sample_packed_u8 if impl == "pallas" else bilinear_sample_corner_u8

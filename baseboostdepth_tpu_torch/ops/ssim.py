@@ -4,7 +4,8 @@
 Reflect-pad(1), 3x3 stride-1 means of x, y, x^2, y^2 and xy, C1 = 0.01^2,
 C2 = 0.03^2, output clip((1 - SSIM)/2, 0, 1). Images stay NHWC at the public
 functions; the pools run on a channels-last NCHW view. Differentiable in
-both arguments, as the JAX package's XLA path is.
+both arguments, as the JAX package's XLA path is. `reprojection_loss` also
+dispatches to the fused kernels of `ops/ssim_cuda.py` (impl="fused").
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from baseboostdepth_tpu_torch.ops import absolute, clip
+from baseboostdepth_tpu_torch.ops.ssim_cuda import reprojection_loss_fused
 
 _C1 = 0.01**2
 _C2 = 0.03**2
@@ -39,10 +41,23 @@ def ssim(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def reprojection_loss(
-    pred: torch.Tensor, target: torch.Tensor, use_ssim: bool = True
+    pred: torch.Tensor, target: torch.Tensor, use_ssim: bool = True, impl: str = "xla"
 ) -> torch.Tensor:
     """0.85 * SSIM + 0.15 * L1, channel-averaged -> [B, H, W, 1]
-    (reference trainer.py:477-486)."""
+    (reference trainer.py:477-486).
+
+    impl: "xla" (the default; the JAX package's name for this formulation)
+    is differentiable in both pred and target. "fused" takes the fused
+    kernels (`ops/ssim_cuda.py`, three channels only), whose gradient flows
+    into pred only, with the Pallas kernel's subgradients. "auto" takes
+    "fused" for CUDA tensors and "xla" otherwise, as the JAX package's
+    "auto" takes the fused kernel on a TPU. Without SSIM every impl is the
+    plain L1.
+    """
+    if impl not in ("xla", "fused", "auto"):
+        raise ValueError(f"reprojection_loss: impl must be xla, fused or auto, got {impl!r}")
+    if use_ssim and (impl == "fused" or (impl == "auto" and pred.is_cuda)):
+        return reprojection_loss_fused(pred, target)
     l1 = torch.mean(absolute(target - pred), dim=-1, keepdim=True)
     if not use_ssim:
         return l1

@@ -1,6 +1,7 @@
 """Where the port's training step spends its time on the GPU.
 
     python -m baseboostdepth_tpu_torch.profile_step [--stage late_F7|early_F2|both] [--steps 2]
+        [--photo_impl xla|fused] [--warp_impl auto|corner|pallas]
 
 Builds the main path as chip_smoke.py does (md2 ResNet-18, 640x192, batch
 12, bf16 networks, random weights from seed 0, synthetic uint8 frames, pose
@@ -9,7 +10,9 @@ head biased to KITTI-scale motion), runs two warm-up steps, then traces
 wall ms/step (synchronized host clock), device busy ms/step (the sum of
 kernel times), the idle share, device time by kernel class, the top
 kernels and the kernel launches per step. Kernel classes are read from
-kernel names, so they are approximate. Needs a CUDA device.
+kernel names, so they are approximate. `--photo_impl` and `--warp_impl` set
+the step's kernel options (StepStatic's defaults: xla, auto). Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -36,6 +39,10 @@ B = 12
 # first matching substring wins
 _CLASSES = (
     ("corner_sweep", ("corner_sweep",)),
+    ("ssim_fused_fwd", ("ssim_fused_fwd",)),
+    ("ssim_fused_bwd", ("ssim_fused_bwd",)),
+    ("warp_packed_fwd", ("warp_packed_fwd",)),
+    ("warp_packed_bwd", ("warp_packed_bwd",)),
     ("conv (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad", "fprop", "nhwc")),
     ("batch norm", ("batch_norm", "bn_fw", "bn_bw", "welford")),
     ("gemm", ("gemm", "cutlass")),
@@ -64,8 +71,8 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_stage(stage: str, steps: int) -> dict:
-    st = main_path_static(stage)
+def profile_stage(stage: str, steps: int, **options) -> dict:
+    st = main_path_static(stage, **options)
     state = init_state(st, seed=0, device="cuda", steps_per_epoch=3317)
     realistic_pose_bias_(state.pose_net)
     batch = {k: torch.as_tensor(v).cuda()
@@ -97,6 +104,7 @@ def profile_stage(stage: str, steps: int) -> dict:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {
         "stage": stage, "F": st.F, "scales": list(st.scales), "steps_traced": steps,
+        "photo_impl": st.photo_impl, "warp_impl": st.warp_impl,
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "ms_per_step_by_class": dict(sorted(classes.items(), key=lambda kv: -kv[1])),
@@ -110,6 +118,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--stage", choices=[*MAIN_PATH_STAGES, "both"], default="both")
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--photo_impl", choices=["xla", "fused"], default="xla")
+    ap.add_argument("--warp_impl", choices=["auto", "corner", "pallas"], default="auto")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -120,7 +130,8 @@ def main(argv=None) -> int:
     print(card)
     stages = list(MAIN_PATH_STAGES) if args.stage == "both" else [args.stage]
     for stage in stages:
-        out = profile_stage(stage, args.steps)
+        out = profile_stage(stage, args.steps, photo_impl=args.photo_impl,
+                            warp_impl=args.warp_impl)
         out["card"] = card
         print(json.dumps(out))
         torch.cuda.empty_cache()

@@ -8,9 +8,18 @@ stage needs stacked into ONE pose-net call, chained poses for incremental
 stages (negative offsets chained properly), partial replacement as a masked
 column splice, error-induced poses from the chained estimate before partial
 replacement, and the main-slot and error-pose warps merged into one warp
-call over 2S-1 slots (the JAX package's default; its two-call schedule,
-pose_input_scale and photo_impl options are not ported: ModelConfig keeps
-them as configuration only).
+call over 2S-1 slots (the JAX package's default; its two-call schedule and
+pose_input_scale options are not ported: ModelConfig keeps them as
+configuration only).
+
+Two kernel options, with the JAX package's names and defaults:
+warp_impl "auto" / "corner" (the corner-plane warp) or "pallas" (the packed
+warp, a forward and a backward kernel), and photo_impl "xla" (the plain
+photometric loss of ops/ssim.py) or "fused" (the fused SSIM kernels of
+ops/ssim_cuda.py, gradient into the warped images only). One deliberate
+difference: the JAX step takes the fused photometric kernel only on a TPU
+and its XLA path elsewhere; the port takes it whenever asked, so on CPU
+tensors it runs the kernels' plain versions, as every port kernel does.
 
 PyTorch idiom: the networks are nn.Modules that hold their parameters and
 BatchNorm buffers, the train step updates them in place, and the automask
@@ -60,6 +69,8 @@ class StepStatic:
     # epochs that compute one scale (trainer.py:44 vs 568)
     loss_norm_scales: int = 4
     dtype: str = "float32"
+    warp_impl: str = "auto"  # auto | corner | pallas (ops/sampling.py::resolve_warp)
+    photo_impl: str = "xla"  # xla | fused (ops/ssim.py::reprojection_loss)
 
 
 # The main path's two curriculum stages (bench.py's step classes): the late
@@ -70,11 +81,12 @@ MAIN_PATH_STAGES = {
 }
 
 
-def main_path_static(stage: str, dtype: str = "bfloat16") -> StepStatic:
+def main_path_static(stage: str, dtype: str = "bfloat16", **options) -> StepStatic:
     """StepStatic of one main-path stage at the published 640x192 width:
-    md2 ResNet-18, tri-min + decomp, pose_error 5.5."""
+    md2 ResNet-18, tri-min + decomp, pose_error 5.5. `options` sets other
+    fields, e.g. warp_impl="pallas", photo_impl="fused"."""
     return StepStatic(zoo="md2", num_layers=18, trimin=True, decomp=True, pose_error=5.5,
-                      dtype=dtype, **MAIN_PATH_STAGES[stage])
+                      dtype=dtype, **MAIN_PATH_STAGES[stage], **options)
 
 
 @dataclasses.dataclass
@@ -289,7 +301,7 @@ def loss_forward(
             f"batch frame axis {frames.shape[1]} != 2F+2 = {NF}: the batch's "
             f"stage F and StepStatic.F disagree"
         )
-    warp_fn = resolve_warp(frames)  # uint8 frames only
+    warp_fn = resolve_warp(frames, st.warp_impl)  # uint8 frames only
     frames = apply_flip(frames, batch["flip"])
     color = frames.to(torch.float32) / 255.0
 
@@ -313,7 +325,11 @@ def loss_forward(
     target = color[:, F]
     slot_valid = batch["slot_valid"]
 
-    ident_l = losses.slot_losses(target, sources, slot_valid, use_ssim=st.use_ssim)
+    def photo_losses(images, valid):
+        return losses.slot_losses(target, images, valid, use_ssim=st.use_ssim,
+                                  impl=st.photo_impl)
+
+    ident_l = photo_losses(sources, slot_valid)
     if noise is None:
         noise = torch.randn((B, 1, H, W), generator=generator, device=device) * 1e-5
 
@@ -353,11 +369,11 @@ def loss_forward(
         else:
             warped = warp_all(depth, T_slots, sources_raw)
             warped_e = None
-        warp_l = losses.slot_losses(target, warped, slot_valid, use_ssim=st.use_ssim)
+        warp_l = photo_losses(warped, slot_valid)
 
         err_l = None
         if warped_e is not None:
-            err_l = losses.slot_losses(target, warped_e, slot_valid[:, :-1], use_ssim=st.use_ssim)
+            err_l = photo_losses(warped_e, slot_valid[:, :-1])
 
         min_l = losses.min_reprojection(warp_l, ident_l, noise, err_l)
         loss_s = torch.mean(min_l)

@@ -41,6 +41,7 @@ def test_no_jax_or_jax_package_imported(probe):
 def test_every_port_module_was_imported(probe):
     imported = set(probe["imported"])
     for name in ("baseboostdepth_tpu_torch.training.step", "baseboostdepth_tpu_torch.ops.warp_cuda",
+                 "baseboostdepth_tpu_torch.ops.ssim_cuda",
                  "baseboostdepth_tpu_torch.models.convert", "baseboostdepth_tpu_torch.config"):
         assert name in imported
     assert len(imported) >= 20

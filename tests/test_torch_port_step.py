@@ -6,11 +6,19 @@ JAX package's reference-checkpoint importers; JAX's gradients come back
 through models/convert.py), the same batch and the same automask noise.
 The JAX side runs the corner-plane Pallas kernel in interpret mode
 (warp_impl="corner"); the port runs the kernel's plain version, as it does
-on any CPU tensor. Two stages:
+on any CPU tensor. Two stages, and the second once more with the step's
+kernel options:
 
   (a) F=2, direct poses, scales (0, 1, 2, 3) -- the early curriculum stage;
   (b) F=3, incremental + partial + decomp, scale (0,) -- the late stage's
-      method at a smaller frame budget.
+      method at a smaller frame budget;
+  (c) (b) with photo_impl="fused", warp_impl="pallas" on both sides. On the
+      CPU the JAX step runs its packed Pallas warp pair in interpret mode
+      but its XLA photometric loss (it takes the fused kernel on a TPU
+      only); the port runs the plain versions of its packed-warp and fused
+      SSIM kernels. The two photometric losses have the same values, and
+      their gradients differ only at ties (a clip bound, pred == target);
+      the case holds the same tolerances as (b).
 
 Tolerances: total and per-scale losses 1e-5 relative; BN statistics 1e-4
 relative, with a floor of 1e-5 of each tensor's largest entry for batch
@@ -64,6 +72,8 @@ STAGES = {
                             f_max=(2, 1)),
     "late_F3_incremental_partial": dict(F=3, scales=(0,), incremental=True, partial=True,
                                         f_max=(3, 2)),
+    "late_F3_fused_packed": dict(F=3, scales=(0,), incremental=True, partial=True,
+                                 f_max=(3, 2), photo_impl="fused", warp_impl="pallas"),
 }
 
 
@@ -136,9 +146,9 @@ def test_train_step_matches_jax(stage):
     cfg = STAGES[stage]
     kw = dict(height=H, width=W, F=cfg["F"], scales=cfg["scales"], trimin=True,
               incremental=cfg["incremental"], partial=cfg["partial"], decomp=True,
-              pose_error=5.5, dtype="float32")
-    jst = JaxStepStatic(warp_impl="corner", merged_warp=True, **kw)
-    tst = StepStatic(**kw)
+              pose_error=5.5, dtype="float32", photo_impl=cfg.get("photo_impl", "xla"))
+    jst = JaxStepStatic(warp_impl=cfg.get("warp_impl", "corner"), merged_warp=True, **kw)
+    tst = StepStatic(warp_impl=cfg.get("warp_impl", "auto"), **kw)
     batch = _batch(cfg["F"], cfg["f_max"], seed=cfg["F"])
 
     # ---- weights: the port's init from seed 0, the pose head biased to
