@@ -1,1 +1,2 @@
-"""Data: device-side augmentation."""
+"""Data: KITTI indexing, the curriculum, the host loader, device-side
+augmentation."""

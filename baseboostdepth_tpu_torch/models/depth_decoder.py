@@ -20,6 +20,16 @@ from torch import nn
 DEC_CHANNELS = (16, 32, 64, 128, 256)
 
 
+def reflect_pad1(x: torch.Tensor) -> torch.Tensor:
+    """Pad H and W by one as jnp.pad(mode="reflect") does. torch's reflect
+    padding refuses an axis of length 1, where jnp.pad repeats the element
+    (a 32-pixel-high input reaches the coarsest decoder stage at height 1)."""
+    if x.shape[-1] > 1 and x.shape[-2] > 1:
+        return F.pad(x, (1, 1, 1, 1), mode="reflect")
+    x = F.pad(x, (1, 1, 0, 0), mode="reflect" if x.shape[-1] > 1 else "replicate")
+    return F.pad(x, (0, 0, 1, 1), mode="reflect" if x.shape[-2] > 1 else "replicate")
+
+
 class ReflectConv3x3(nn.Module):
     """Reflection-pad(1) + 3x3 conv; reference layers.py:118-133."""
 
@@ -28,7 +38,7 @@ class ReflectConv3x3(nn.Module):
         self.conv = nn.Conv2d(in_channels, out_channels, 3)
 
     def forward(self, x):
-        return self.conv(F.pad(x, (1, 1, 1, 1), mode="reflect"))
+        return self.conv(reflect_pad1(x))
 
 
 class ConvBlock(nn.Module):

@@ -23,6 +23,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 NVCC_FLAGS = (
@@ -88,6 +90,17 @@ def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.bbd_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+
+def launch(lib: ctypes.CDLL, fn_name: str, tensors, ints) -> None:
+    """Call the launcher `fn_name` of `lib` with the tensors' data pointers,
+    the integer arguments and the current stream of the tensors' device;
+    raise if the launch failed."""
+    dev = tensors[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn_name)(*(t.data_ptr() for t in tensors), *ints, stream)
+    check_launch(lib, err, fn_name)
 
 
 def build_log(name: str, sources: tuple) -> str:

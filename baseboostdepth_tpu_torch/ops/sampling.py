@@ -16,6 +16,7 @@ from baseboostdepth_tpu_torch.ops.warp_cuda import (
     bilinear_sample_corner_u8,
     bilinear_sample_packed_u8,
 )
+from baseboostdepth_tpu_torch.ops.warp_planes import bilinear_sample_planes
 
 
 def bilinear_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
@@ -66,12 +67,14 @@ def resolve_warp(sources: torch.Tensor, impl: str = "auto"):
 
     uint8 frames: "auto" or "corner" -> the corner-plane warp
     (`bilinear_sample_corner_u8`), "pallas" -> the packed warp
-    (`bilinear_sample_packed_u8`); both in ops/warp_cuda.py, which launch
-    their CUDA kernels for CUDA tensors and run their plain versions for CPU
-    tensors. "xla" raises: it would run the plain `bilinear_sample` above on
-    the card, and that is the kernels' yardstick in the tests, never the
-    step's warp. Float sources need the float-planes kernel pair, not ported
-    yet.
+    (`bilinear_sample_packed_u8`); both in ops/warp_cuda.py. Float sources:
+    "auto", "corner" and "pallas" alike -> the float-planes warp
+    (`ops/warp_planes.py::bilinear_sample_planes`), as in the JAX package,
+    where "corner" only changes the uint8 path and "auto" on the accelerator
+    is the kernel. Each launches its CUDA kernels for CUDA tensors and runs
+    their plain versions for CPU tensors. "xla" raises: it would run the
+    plain `bilinear_sample` above on the card, and that is the kernels'
+    yardstick in the tests, never the step's warp.
     """
     if impl not in ("auto", "corner", "pallas"):
         raise ValueError(
@@ -80,8 +83,7 @@ def resolve_warp(sources: torch.Tensor, impl: str = "auto"):
             f"float gather ('xla') is not a warp of the step"
         )
     if sources.dtype != torch.uint8:
-        raise NotImplementedError(
-            "the kernel warp of float sources (float-planes warp pair) is not "
-            "ported yet: ROADMAP.md queue B, item B4"
-        )
+        if not sources.is_floating_point():
+            raise TypeError(f"warp sources must be uint8 or float, got {sources.dtype}")
+        return bilinear_sample_planes
     return bilinear_sample_packed_u8 if impl == "pallas" else bilinear_sample_corner_u8

@@ -27,7 +27,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from baseboostdepth_tpu_torch.ops.cuda_build import check_launch, load_library
+from baseboostdepth_tpu_torch.ops.cuda_build import launch, load_library
 
 LIB_NAME = "ssim"
 SOURCES = ("ssim_fused.cu",)
@@ -176,16 +176,6 @@ def _check_kernel_args(what, pred, target, g=None):
         raise ValueError(f"{what}: unsupported device {dev}")
 
 
-def _launch(fn_name, *tensors):
-    lib = _lib()
-    N, H, W, _ = tensors[0].shape
-    dev = tensors[0].device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn_name)(*(t.data_ptr() for t in tensors), N, H, W, stream)
-    check_launch(lib, err, fn_name)
-
-
 def ssim_fused_fwd(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """pred, target float32 [N, H, W, 3] -> the loss map float32
     [N, H, W, 1].
@@ -197,7 +187,7 @@ def ssim_fused_fwd(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     if pred.device.type == "cpu":
         return ssim_fused_fwd_reference(pred, target)
     out = torch.empty((*pred.shape[:3], 1), dtype=torch.float32, device=pred.device)
-    _launch("bbd_ssim_fused_fwd", pred, target, out)
+    launch(_lib(), "bbd_ssim_fused_fwd", (pred, target, out), pred.shape[:3])
     ssim_fused_fwd.launches += 1
     return out
 
@@ -216,7 +206,7 @@ def ssim_fused_bwd(pred: torch.Tensor, target: torch.Tensor, g: torch.Tensor) ->
     if pred.device.type == "cpu":
         return ssim_fused_bwd_reference(pred, target, g)
     gx = torch.empty_like(pred)
-    _launch("bbd_ssim_fused_bwd", pred, target, g, gx)
+    launch(_lib(), "bbd_ssim_fused_bwd", (pred, target, g, gx), pred.shape[:3])
     ssim_fused_bwd.launches += 1
     return gx
 

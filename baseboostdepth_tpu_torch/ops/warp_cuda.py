@@ -31,7 +31,7 @@ import math
 import torch
 
 from baseboostdepth_tpu_torch.ops import clip
-from baseboostdepth_tpu_torch.ops.cuda_build import check_launch, load_library
+from baseboostdepth_tpu_torch.ops.cuda_build import launch, load_library
 
 LIB_NAME = "warp"
 SOURCES = ("corner_sweep.cu", "warp_packed.cu")
@@ -100,17 +100,6 @@ def _check_kernel_args(what, frames_u8, px, py, g=None):
         raise ValueError(f"{what}: unsupported device {dev}")
 
 
-def _launch(fn_name, *tensors, N, H, W, Ho, Wo):
-    """Launch `fn_name` of the library on the current stream of the
-    tensors' device and raise if the launch failed."""
-    lib = _lib()
-    dev = tensors[0].device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, fn_name)(*(t.data_ptr() for t in tensors), N, H, W, Ho, Wo, stream)
-    check_launch(lib, err, fn_name)
-
-
 def corner_sweep(frames_u8: torch.Tensor, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
     """Corner planes int32 [N, 4, Ho, Wo] of frames uint8 [N, H, W, 3] at
     clamped pixel coordinates px / py float32 [N, Ho, Wo].
@@ -124,7 +113,7 @@ def corner_sweep(frames_u8: torch.Tensor, px: torch.Tensor, py: torch.Tensor) ->
     N, H, W, _ = frames_u8.shape
     _, Ho, Wo = px.shape
     out = torch.empty((N, 4, Ho, Wo), dtype=torch.int32, device=frames_u8.device)
-    _launch("bbd_corner_sweep_u8", frames_u8, px, py, out, N=N, H=H, W=W, Ho=Ho, Wo=Wo)
+    launch(_lib(), "bbd_corner_sweep_u8", (frames_u8, px, py, out), (N, H, W, Ho, Wo))
     corner_sweep.launches += 1
     return out
 
@@ -152,20 +141,26 @@ def _blend(corners: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor) -> torch.T
     return torch.stack(outs, dim=-1)
 
 
+def pixel_coords(grid: torch.Tensor, N: int, H: int, W: int):
+    """grid [..., Ho, Wo, 2] normalized (align_corners=True) over N images of
+    H x W -> x, y float32 [N, Ho, Wo]: pixel coordinates clamped into the
+    image by `ops.clip`, so the grid gradient saturates outside it (0.5 at
+    exactly a border, as jnp.clip)."""
+    Ho, Wo = grid.shape[-3:-1]
+    x = clip((grid[..., 0].reshape(N, Ho, Wo) + 1.0) * 0.5 * (W - 1), 0.0, W - 1)
+    y = clip((grid[..., 1].reshape(N, Ho, Wo) + 1.0) * 0.5 * (H - 1), 0.0, H - 1)
+    return x.float().contiguous(), y.float().contiguous()
+
+
 def _pixel_coords(frames_u8: torch.Tensor, grid: torch.Tensor):
-    """frames_u8 [..., H, W, 3] uint8, grid [..., Ho, Wo, 2] normalized
-    (align_corners=True) -> (frames [N, H, W, 3], x, y [N, Ho, Wo]): pixel
-    coordinates clamped into the image by `ops.clip`, so the grid gradient
-    saturates outside it (0.5 at exactly a border, as jnp.clip)."""
+    """frames_u8 [..., H, W, 3] uint8, grid [..., Ho, Wo, 2] -> (frames
+    [N, H, W, 3], x, y [N, Ho, Wo]) as `pixel_coords` gives them."""
     H, W, C = frames_u8.shape[-3:]
     if C != 3 or frames_u8.dtype != torch.uint8:
         raise TypeError(f"expected uint8 [..., H, W, 3], got {frames_u8.dtype} "
                         f"{tuple(frames_u8.shape)}")
-    Ho, Wo = grid.shape[-3:-1]
     N = math.prod(frames_u8.shape[:-3])
-    x = clip((grid[..., 0].reshape(N, Ho, Wo) + 1.0) * 0.5 * (W - 1), 0.0, W - 1)
-    y = clip((grid[..., 1].reshape(N, Ho, Wo) + 1.0) * 0.5 * (H - 1), 0.0, H - 1)
-    return frames_u8.reshape(N, H, W, 3).contiguous(), x.contiguous(), y.contiguous()
+    return (frames_u8.reshape(N, H, W, 3).contiguous(), *pixel_coords(grid, N, H, W))
 
 
 def bilinear_sample_corner_u8(frames_u8: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
@@ -232,7 +227,7 @@ def warp_packed_fwd(frames_u8: torch.Tensor, px: torch.Tensor, py: torch.Tensor)
     N, H, W, _ = frames_u8.shape
     _, Ho, Wo = px.shape
     out = torch.empty((N, Ho, Wo, 3), dtype=torch.float32, device=frames_u8.device)
-    _launch("bbd_warp_packed_fwd", frames_u8, px, py, out, N=N, H=H, W=W, Ho=Ho, Wo=Wo)
+    launch(_lib(), "bbd_warp_packed_fwd", (frames_u8, px, py, out), (N, H, W, Ho, Wo))
     warp_packed_fwd.launches += 1
     return out
 
@@ -255,7 +250,7 @@ def warp_packed_bwd(frames_u8: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     _, Ho, Wo = px.shape
     gpx = torch.empty((N, Ho, Wo), dtype=torch.float32, device=frames_u8.device)
     gpy = torch.empty_like(gpx)
-    _launch("bbd_warp_packed_bwd", frames_u8, px, py, g, gpx, gpy, N=N, H=H, W=W, Ho=Ho, Wo=Wo)
+    launch(_lib(), "bbd_warp_packed_bwd", (frames_u8, px, py, g, gpx, gpy), (N, H, W, Ho, Wo))
     warp_packed_bwd.launches += 1
     return gpx, gpy
 

@@ -1,7 +1,7 @@
 """Where the port's training step spends its time on the GPU.
 
     python -m baseboostdepth_tpu_torch.profile_step [--stage late_F7|early_F2|both] [--steps 2]
-        [--photo_impl xla|fused] [--warp_impl auto|corner|pallas]
+        [--photo_impl xla|fused] [--warp_impl auto|corner|pallas] [--float_frames]
 
 Builds the main path as chip_smoke.py does (md2 ResNet-18, 640x192, batch
 12, bf16 networks, random weights from seed 0, synthetic uint8 frames, pose
@@ -11,8 +11,10 @@ wall ms/step (synchronized host clock), device busy ms/step (the sum of
 kernel times), the idle share, device time by kernel class, the top
 kernels and the kernel launches per step. Kernel classes are read from
 kernel names, so they are approximate. `--photo_impl` and `--warp_impl` set
-the step's kernel options (StepStatic's defaults: xla, auto). Needs a CUDA
-device.
+the step's kernel options (StepStatic's defaults: xla, auto);
+`--float_frames` feeds the frames as float32 in [0, 1] (the synthetic uint8
+frames / 255), which the step warps with the float-planes kernels whatever
+`--warp_impl` says. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ _CLASSES = (
     ("ssim_fused_bwd", ("ssim_fused_bwd",)),
     ("warp_packed_fwd", ("warp_packed_fwd",)),
     ("warp_packed_bwd", ("warp_packed_bwd",)),
+    ("warp_planes_fwd", ("warp_planes_fwd",)),
+    ("warp_planes_bwd", ("warp_planes_bwd",)),
     ("conv (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad", "fprop", "nhwc")),
     ("batch norm", ("batch_norm", "bn_fw", "bn_bw", "welford")),
     ("gemm", ("gemm", "cutlass")),
@@ -71,12 +75,14 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_stage(stage: str, steps: int, **options) -> dict:
+def profile_stage(stage: str, steps: int, float_frames: bool = False, **options) -> dict:
     st = main_path_static(stage, **options)
     state = init_state(st, seed=0, device="cuda", steps_per_epoch=3317)
     realistic_pose_bias_(state.pose_net)
     batch = {k: torch.as_tensor(v).cuda()
              for k, v in synthetic_batch(st.F, B, st.height, st.width, seed=st.F).items()}
+    if float_frames:
+        batch["frames"] = batch["frames"].float() / 255.0
     step = make_train_step(st, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     for _ in range(2):
@@ -104,7 +110,7 @@ def profile_stage(stage: str, steps: int, **options) -> dict:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {
         "stage": stage, "F": st.F, "scales": list(st.scales), "steps_traced": steps,
-        "photo_impl": st.photo_impl, "warp_impl": st.warp_impl,
+        "photo_impl": st.photo_impl, "warp_impl": st.warp_impl, "float_frames": float_frames,
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "ms_per_step_by_class": dict(sorted(classes.items(), key=lambda kv: -kv[1])),
@@ -120,6 +126,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--photo_impl", choices=["xla", "fused"], default="xla")
     ap.add_argument("--warp_impl", choices=["auto", "corner", "pallas"], default="auto")
+    ap.add_argument("--float_frames", action="store_true",
+                    help="feed float32 frames (uint8 / 255): the float-planes warp")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
@@ -130,8 +138,8 @@ def main(argv=None) -> int:
     print(card)
     stages = list(MAIN_PATH_STAGES) if args.stage == "both" else [args.stage]
     for stage in stages:
-        out = profile_stage(stage, args.steps, photo_impl=args.photo_impl,
-                            warp_impl=args.warp_impl)
+        out = profile_stage(stage, args.steps, float_frames=args.float_frames,
+                            photo_impl=args.photo_impl, warp_impl=args.warp_impl)
         out["card"] = card
         print(json.dumps(out))
         torch.cuda.empty_cache()

@@ -21,6 +21,11 @@ difference: the JAX step takes the fused photometric kernel only on a TPU
 and its XLA path elsewhere; the port takes it whenever asked, so on CPU
 tensors it runs the kernels' plain versions, as every port kernel does.
 
+Frames may be uint8 (the loader's batches: colour = frames / 255, the warp
+reads the uint8 frames through the kernel warp_impl selects) or float
+(already in [0, 1]: used as they are, and warped by the float-planes kernel
+pair of ops/warp_planes.py whatever warp_impl says, as in the JAX step).
+
 PyTorch idiom: the networks are nn.Modules that hold their parameters and
 BatchNorm buffers, the train step updates them in place, and the automask
 noise comes from an explicit torch.Generator (or is passed in). Under
@@ -43,7 +48,7 @@ from baseboostdepth_tpu_torch.data.augment import apply_flip, color_jitter
 from baseboostdepth_tpu_torch.device import require_device
 from baseboostdepth_tpu_torch.models import build_depth_net, build_pose_net
 from baseboostdepth_tpu_torch.ops.resize import lanczos_pyramid, resize_bilinear
-from baseboostdepth_tpu_torch.ops.sampling import resolve_warp
+from baseboostdepth_tpu_torch.ops.sampling import bilinear_sample, resolve_warp
 from baseboostdepth_tpu_torch.training.batch import num_temporal_slots
 from baseboostdepth_tpu_torch.training.optim import make_optimizer
 
@@ -96,6 +101,23 @@ class TrainState:
     pose_net: nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
+
+    def state_dict(self) -> dict:
+        """Everything a resume needs: both networks (BatchNorm statistics
+        included), Adam's moments, the schedule's position and the step."""
+        return {"step": self.step, "depth_net": self.depth_net.state_dict(),
+                "pose_net": self.pose_net.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore `state_dict()`'s contents in place, onto the device the
+        networks live on."""
+        self.depth_net.load_state_dict(sd["depth_net"])
+        self.pose_net.load_state_dict(sd["pose_net"])
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.scheduler.load_state_dict(sd["scheduler"])
+        self.step = int(sd["step"])
 
 
 def build_networks(st: StepStatic, generator: Optional[torch.Generator] = None):
@@ -301,9 +323,10 @@ def loss_forward(
             f"batch frame axis {frames.shape[1]} != 2F+2 = {NF}: the batch's "
             f"stage F and StepStatic.F disagree"
         )
-    warp_fn = resolve_warp(frames, st.warp_impl)  # uint8 frames only
+    is_u8 = frames.dtype == torch.uint8
+    warp_fn = resolve_warp(frames, st.warp_impl)
     frames = apply_flip(frames, batch["flip"])
-    color = frames.to(torch.float32) / 255.0
+    color = frames.to(torch.float32) / 255.0 if is_u8 else frames
 
     B = color.shape[0]
     aug = color_jitter(color, batch["jitter"])
@@ -321,7 +344,9 @@ def loss_forward(
     stereo_idx = torch.full((B, 1), NF - 1, dtype=torch.long, device=device)
     src_idx = torch.cat([batch["slot_offset"].long() + F, stereo_idx], dim=1)
     sources_raw = frames[torch.arange(B, device=device)[:, None], src_idx]  # [B, S+1, H, W, 3]
-    sources = sources_raw.to(torch.float32) / 255.0
+    sources = sources_raw.to(torch.float32) / 255.0 if is_u8 else sources_raw
+    # the warp reads the uint8 frames themselves, or the float frames
+    warp_src = sources_raw if is_u8 else sources
     target = color[:, F]
     slot_valid = batch["slot_valid"]
 
@@ -363,11 +388,11 @@ def loss_forward(
             both = warp_all(
                 depth,
                 torch.cat([T_slots, T_err], dim=1),
-                torch.cat([sources_raw[:, :S_main], sources_raw[:, :S_err]], dim=1),
+                torch.cat([warp_src[:, :S_main], warp_src[:, :S_err]], dim=1),
             )
             warped, warped_e = both[:, :S_main], both[:, S_main:]
         else:
-            warped = warp_all(depth, T_slots, sources_raw)
+            warped = warp_all(depth, T_slots, warp_src)
             warped_e = None
         warp_l = photo_losses(warped, slot_valid)
 
@@ -421,3 +446,99 @@ def make_train_step(st: StepStatic, device="cuda"):
         return metrics
 
     return train_step
+
+
+def make_debug_forward(st: StepStatic, device="cuda"):
+    """Build debug_fn(depth_net, pose_net, batch, generator=None) -> image
+    panel tensors, the counterpart of the JAX package's make_debug_forward.
+
+    The observability the reference gets from wandb image logging
+    (trainer.py:736-772): target, disparity, per-slot warped candidates, the
+    per-pixel min loss, and which candidate won (warp / identity /
+    error-pose per slot -- the reference's `ident` masks,
+    trainer.py:1046-1100). Networks in eval mode, no gradient, no
+    augmentation. Run on demand at log time, never in the train loop; like
+    the JAX one it warps with the plain gather (`ops.sampling.bilinear_sample`),
+    not with the step's kernels.
+    """
+    device = require_device(device)
+
+    @torch.no_grad()
+    def debug_fn(depth_net: nn.Module, pose_net: nn.Module, batch, generator=None):
+        H, W, F = st.height, st.width, st.F
+        tb = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        frames = tb["frames"]
+        is_u8 = frames.dtype == torch.uint8
+        frames = apply_flip(frames, tb["flip"])
+        color = frames.to(torch.float32) / 255.0 if is_u8 else frames
+
+        depth_net.eval()
+        pose_net.eval()
+        with _autocast(st, device):
+            disps = depth_net(color[:, F])
+        disp0 = disps[0].float()
+        disp_full = disp0 if disp0.shape[1:3] == (H, W) else resize_bilinear(disp0, H, W)
+        T_slot, T_err = predict_poses(st, pose_net, color, tb["slot_offset"], tb["slot_partial"])
+        T_slots = torch.cat([T_slot, tb["stereo_T"][:, None]], dim=1)
+        _, depth = geometry.disp_to_depth(disp_full[..., 0], st.min_depth, st.max_depth)
+
+        B = color.shape[0]
+        S = T_slots.shape[1]
+        target = color[:, F]
+        stereo_idx = torch.full((B, 1), 2 * F + 1, dtype=torch.long, device=device)
+        src_idx = torch.cat([tb["slot_offset"].long() + F, stereo_idx], dim=1)
+        sources = color[torch.arange(B, device=device)[:, None], src_idx]
+
+        def warp(Ts):
+            n = Ts.shape[1]
+            d = depth[:, None].expand(B, n, H, W).reshape(B * n, H, W)
+            grid = geometry.warp_grid(d, tb["K"].repeat_interleave(n, dim=0),
+                                      tb["inv_K"].repeat_interleave(n, dim=0),
+                                      Ts.reshape(B * n, 4, 4))
+            return bilinear_sample(sources[:, :n].reshape(B * n, H, W, 3), grid).reshape(
+                B, n, H, W, 3)
+
+        warped = warp(T_slots)
+        slot_valid = tb["slot_valid"]
+        warp_l = losses.slot_losses(target, warped, slot_valid, use_ssim=st.use_ssim)
+        ident_l = losses.slot_losses(target, sources, slot_valid, use_ssim=st.use_ssim)
+        noise = torch.randn((B, 1, H, W), generator=generator, device=device) * 1e-5
+        cands = [warp_l, ident_l + noise]
+        if T_err is not None:
+            cands.append(losses.slot_losses(target, warp(T_err), slot_valid[:, :-1],
+                                            use_ssim=st.use_ssim))
+        all_c = torch.cat(cands, dim=1)
+        winner = torch.argmin(all_c, dim=1).to(torch.int32)
+        return {
+            "target": target,
+            "disp": disp_full[..., 0],
+            "depth": depth,
+            "warped": warped,
+            "min_loss": torch.amin(all_c, dim=1),
+            # candidate index: 0..S-1 warp, S..2S-1 identity, 2S.. error
+            "winner": winner,
+            # automask = an identity candidate won (a stationary pixel)
+            "automask": ((winner >= S) & (winner < 2 * S)).to(torch.float32),
+        }
+
+    return debug_fn
+
+
+def make_eval_forward(st: StepStatic, device="cuda"):
+    """Build eval_fn(depth_net, images [B, H, W, 3] float in [0, 1]) ->
+    full-resolution depth [B, H, W] float32 on `device`: the val()/evaluate
+    path, disp_0 -> disp_to_depth (reference trainer.py:299-307); the
+    counterpart of the JAX package's make_eval_forward. The network runs in
+    eval mode without gradients."""
+    device = require_device(device)
+
+    @torch.no_grad()
+    def eval_fn(depth_net: nn.Module, images) -> torch.Tensor:
+        x = torch.as_tensor(images).to(device, torch.float32)
+        depth_net.eval()
+        with _autocast(st, device):
+            disps = depth_net(x)
+        _, depth = geometry.disp_to_depth(disps[0].float()[..., 0], st.min_depth, st.max_depth)
+        return depth
+
+    return eval_fn

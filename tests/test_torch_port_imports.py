@@ -41,7 +41,13 @@ def test_no_jax_or_jax_package_imported(probe):
 def test_every_port_module_was_imported(probe):
     imported = set(probe["imported"])
     for name in ("baseboostdepth_tpu_torch.training.step", "baseboostdepth_tpu_torch.ops.warp_cuda",
-                 "baseboostdepth_tpu_torch.ops.ssim_cuda",
-                 "baseboostdepth_tpu_torch.models.convert", "baseboostdepth_tpu_torch.config"):
+                 "baseboostdepth_tpu_torch.ops.ssim_cuda", "baseboostdepth_tpu_torch.ops.warp_planes",
+                 "baseboostdepth_tpu_torch.models.convert", "baseboostdepth_tpu_torch.config",
+                 "baseboostdepth_tpu_torch.training.trainer",
+                 "baseboostdepth_tpu_torch.training.checkpoint",
+                 "baseboostdepth_tpu_torch.data.loader", "baseboostdepth_tpu_torch.data.curriculum",
+                 "baseboostdepth_tpu_torch.data.kitti", "baseboostdepth_tpu_torch.data.kitti_utils",
+                 "baseboostdepth_tpu_torch.evaluation.metrics",
+                 "baseboostdepth_tpu_torch.utils.misc", "baseboostdepth_tpu_torch.cli.train"):
         assert name in imported
-    assert len(imported) >= 20
+    assert len(imported) >= 33

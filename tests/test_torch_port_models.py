@@ -167,3 +167,19 @@ def test_init_disp_bias(nets):
     for k, v in td.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), ref[k].numpy(), err_msg=k)
     td.load_state_dict(before)
+
+
+def test_depth_net_at_height_32(nets):
+    """At 32x64 the decoder's coarsest stage is 1 pixel high: jnp.pad's
+    reflect padding repeats the row there, and the port's decoder does the
+    same (torch's reflect padding refuses a length-1 axis)."""
+    jd, _, params, stats, td, _ = nets
+    x = np.random.default_rng(4).random((2, 32, 64, 3)).astype(np.float32)
+    jout = jd.apply({"params": params["depth"], "batch_stats": stats["depth"]},
+                    jnp.asarray(x), train=False)
+    td.eval()
+    with torch.no_grad():
+        tout = td(torch.from_numpy(x))
+    for a, b in zip(tout, jout):
+        assert tuple(a.shape) == b.shape
+        _close(a.numpy(), b)

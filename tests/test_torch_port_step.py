@@ -18,7 +18,12 @@ kernel options:
       only); the port runs the plain versions of its packed-warp and fused
       SSIM kernels. The two photometric losses have the same values, and
       their gradients differ only at ties (a clip bound, pred == target);
-      the case holds the same tolerances as (b).
+      the case holds the same tolerances as (b);
+  (d) (a) with float frames (the uint8 frames / 255 as float32): both
+      steps use them as colour without dividing, and warp them through the
+      float-planes kernel pair (JAX: `bilinear_sample_pallas` in interpret
+      mode; the port: the plain versions of `ops/warp_planes.py`'s
+      kernels). Same tolerances.
 
 Tolerances: total and per-scale losses 1e-5 relative; BN statistics 1e-4
 relative, with a floor of 1e-5 of each tensor's largest entry for batch
@@ -74,6 +79,8 @@ STAGES = {
                                         f_max=(3, 2)),
     "late_F3_fused_packed": dict(F=3, scales=(0,), incremental=True, partial=True,
                                  f_max=(3, 2), photo_impl="fused", warp_impl="pallas"),
+    "early_F2_float": dict(F=2, scales=(0, 1, 2, 3), incremental=False, partial=False,
+                           f_max=(2, 1), float_frames=True),
 }
 
 
@@ -98,7 +105,7 @@ def _smooth_frames(rng, NF):
     return np.clip(np.rint(img), 0, 255).astype(np.uint8).transpose(0, 1, 3, 4, 2)
 
 
-def _batch(F, f_max, seed):
+def _batch(F, f_max, seed, float_frames=False):
     rng = np.random.default_rng(seed)
     NF = num_frames(F)
     frames = _smooth_frames(rng, NF)
@@ -115,6 +122,8 @@ def _batch(F, f_max, seed):
     jitter[0, :, :3] = rng.uniform(0.8, 1.2, (NF, 3))
     jitter[0, :, 3] = rng.uniform(-0.1, 0.1, NF)
     flip = np.array([False, True])
+    if float_frames:
+        frames = frames.astype(np.float32) / np.float32(255.0)
     return make_batch(frames, np.asarray(f_max), K, stereo_T, flip, jitter, F, True, True)
 
 
@@ -149,7 +158,9 @@ def test_train_step_matches_jax(stage):
               pose_error=5.5, dtype="float32", photo_impl=cfg.get("photo_impl", "xla"))
     jst = JaxStepStatic(warp_impl=cfg.get("warp_impl", "corner"), merged_warp=True, **kw)
     tst = StepStatic(warp_impl=cfg.get("warp_impl", "auto"), **kw)
-    batch = _batch(cfg["F"], cfg["f_max"], seed=cfg["F"])
+    batch = _batch(cfg["F"], cfg["f_max"], seed=cfg["F"],
+                   float_frames=cfg.get("float_frames", False))
+    assert batch["frames"].dtype == (np.float32 if cfg.get("float_frames") else np.uint8)
 
     # ---- weights: the port's init from seed 0, the pose head biased to
     # KITTI-scale motion (as bench.py does), carried to JAX
@@ -216,3 +227,46 @@ def test_train_step_matches_jax(stage):
             if "running_" in name:
                 ref = new_ref[name].numpy()
                 _close(buf.numpy(), ref, rtol=1e-4, atol=1e-5 * np.abs(ref).max(), what=name)
+
+
+def test_eval_and_debug_forwards_match_jax():
+    """make_eval_forward (validation depth) and make_debug_forward (image
+    panels) against the JAX package's, at the same weights, on the
+    early-stage batch: depths and warped images to 1e-4 relative + 1e-5.
+    The per-pixel candidate minimum is held to 1e-4 absolute (values ~0.15):
+    SSIM over nearly flat windows magnifies the warped images' differences
+    (measured up to 6e-5 where a warped candidate wins on both sides), and
+    the debug forward draws its automask noise (1e-5 standard deviation)
+    from its own generator. The winning candidate agrees on 99% of the
+    pixels."""
+    import jax
+
+    from baseboostdepth_tpu.training.step import make_debug_forward as jax_debug
+    from baseboostdepth_tpu.training.step import make_eval_forward as jax_eval
+    from baseboostdepth_tpu_torch.training.step import make_debug_forward, make_eval_forward
+
+    cfg = STAGES["early_F2_direct"]
+    kw = dict(height=H, width=W, F=cfg["F"], scales=cfg["scales"], trimin=True,
+              incremental=False, partial=False, decomp=True, pose_error=5.5, dtype="float32")
+    jst, tst = JaxStepStatic(**kw), StepStatic(**kw)
+    batch = _batch(cfg["F"], cfg["f_max"], seed=11)
+    state = init_state(tst, device="cpu")
+    realistic_pose_bias_(state.pose_net)
+    params, stats = to_flax(state.depth_net.state_dict(), state.pose_net.state_dict())
+    jparams, jstats = jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, stats)
+
+    images = batch["frames"][:, cfg["F"]].astype(np.float32) / 255.0
+    jdepth = np.asarray(jax_eval(jst)(jparams, jstats, jnp.asarray(images)))
+    tdepth = make_eval_forward(tst, device="cpu")(state.depth_net, images)
+    assert tdepth.shape == (B, H, W)
+    _close(tdepth.numpy(), jdepth, rtol=1e-4, what="eval depth")
+
+    jd = jax_debug(jst)(jparams, jstats, jax.tree.map(jnp.asarray, batch), jax.random.PRNGKey(0))
+    td = make_debug_forward(tst, device="cpu")(state.depth_net, state.pose_net, batch,
+                                               torch.Generator().manual_seed(0))
+    assert set(td) == set(jd)
+    for k in ("target", "disp", "depth", "warped"):
+        assert tuple(td[k].shape) == jd[k].shape, k
+        _close(td[k].numpy(), np.asarray(jd[k]), rtol=1e-4, atol=1e-5, what=k)
+    _close(td["min_loss"].numpy(), np.asarray(jd["min_loss"]), rtol=0, atol=1e-4, what="min_loss")
+    assert (td["winner"].numpy() == np.asarray(jd["winner"])).mean() > 0.99

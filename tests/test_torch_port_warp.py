@@ -143,11 +143,12 @@ def test_dispatch_and_argument_checks():
     with pytest.raises(ValueError):
         tw.corner_sweep(torch.from_numpy(img), torch.from_numpy(x).mT.contiguous().mT,
                         torch.from_numpy(y))
-    # the step's one warp: the corner-plane warp of uint8 frames; float
-    # sources wait for the float-planes kernel pair
+    # the step's default warp: the corner-plane warp of uint8 frames; float
+    # sources take the float-planes kernel pair
+    from baseboostdepth_tpu_torch.ops.warp_planes import bilinear_sample_planes
+
     assert tsampling.resolve_warp(torch.from_numpy(img)) is tw.bilinear_sample_corner_u8
-    with pytest.raises(NotImplementedError):
-        tsampling.resolve_warp(torch.from_numpy(img).float())
+    assert tsampling.resolve_warp(torch.from_numpy(img).float()) is bilinear_sample_planes
     if not torch.cuda.is_available():
         # entry points default to the card and never fall back to the CPU
         from baseboostdepth_tpu_torch.training.step import StepStatic, make_train_step

@@ -120,8 +120,10 @@ def test_dispatch_and_argument_checks():
     assert tsampling.resolve_warp(frames, "pallas") is tw.bilinear_sample_packed_u8
     with pytest.raises(ValueError):  # the plain float gather is no warp of the step
         tsampling.resolve_warp(frames, "xla")
-    with pytest.raises(NotImplementedError):  # float sources: the float-planes pair
-        tsampling.resolve_warp(frames.float(), "pallas")
+    # float sources: the float-planes pair
+    from baseboostdepth_tpu_torch.ops.warp_planes import bilinear_sample_planes
+
+    assert tsampling.resolve_warp(frames.float(), "pallas") is bilinear_sample_planes
 
     # both launch counters stay 0 on the CPU: the plain versions run
     before = (tw.warp_packed_fwd.launches, tw.warp_packed_bwd.launches)
