@@ -1,6 +1,5 @@
-"""KITTI raw dataset indexing and intrinsics, a copy of
-`baseboostdepth_tpu/data/kitti.py` (the odometry index waits for the eval
-slice).
+"""KITTI raw and odometry dataset indexing and intrinsics, a copy of
+`baseboostdepth_tpu/data/kitti.py`.
 
 Path scheme and intrinsics follow the reference
 (datasets/kitti_dataset.py:14-23 normalized K scaled by output dims;
@@ -77,3 +76,26 @@ class KittiRawIndex:
 
     def exists(self, folder: str, frame_index: int, side: str) -> bool:
         return os.path.isfile(self.image_path(folder, frame_index, side))
+
+
+class KittiOdomIndex:
+    """Index over KITTI odometry sequences (datasets/kitti_dataset.py:62-93);
+    the pose evaluator reads windows of consecutive frames."""
+
+    def __init__(self, data_path: str, split_file: str, img_ext: str = ".png"):
+        self.data_path = data_path
+        self.img_ext = img_ext
+        self.samples = [parse_split_line(ln) for ln in readlines(split_file)]
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def image_path(self, sequence: str, frame_index: int, side: str = "l") -> str:
+        fname = f"{frame_index:06d}{self.img_ext}"
+        return os.path.join(
+            self.data_path,
+            "sequences",
+            f"{int(sequence):02d}",
+            f"image_{SIDE_MAP[side]}",
+            fname,
+        )

@@ -133,3 +133,30 @@ def warp_grid(
     gx = 2.0 * pix_x / (W - 1) - 1.0
     gy = 2.0 * pix_y / (H - 1) - 1.0
     return torch.stack([gx, gy], dim=-1)
+
+
+def backproject_depth(depth: torch.Tensor, inv_K: torch.Tensor) -> torch.Tensor:
+    """Depth image [B, H, W], inv_K [B, 4, 4] -> homogeneous camera-space
+    point cloud [B, 4, H*W] (reference BackprojectDepth, layers.py:136-167;
+    the evaluation path's standalone op)."""
+    B, H, W = depth.shape
+    rays = pixel_rays(H, W, dtype=depth.dtype, device=depth.device).reshape(1, -1, 3)
+    A = inv_K[:, :3, :3]
+    cam = (A[:, :, 0:1] * rays[..., 0] + A[:, :, 1:2] * rays[..., 1]
+           + A[:, :, 2:3] * rays[..., 2])  # [B, 3, HW]
+    cam = depth.reshape(B, 1, -1) * cam
+    ones = torch.ones((B, 1, cam.shape[-1]), dtype=depth.dtype, device=depth.device)
+    return torch.cat([cam, ones], dim=1)
+
+
+def project_3d(points: torch.Tensor, K: torch.Tensor, T: torch.Tensor, height: int, width: int,
+               eps: float = 1e-7) -> torch.Tensor:
+    """Project homogeneous points [B, 4, H*W] -> normalized grid [B, H, W, 2]
+    (reference Project3D, layers.py:170-195)."""
+    P = _mm(K, T)[:, :3, :]
+    cam = _mm(P, points)  # [B, 3, HW]
+    pix = cam[:, :2] / (cam[:, 2:3] + eps)
+    pix = pix.reshape(points.shape[0], 2, height, width).movedim(1, -1)  # [B, H, W, 2]
+    gx = 2.0 * pix[..., 0] / (width - 1) - 1.0
+    gy = 2.0 * pix[..., 1] / (height - 1) - 1.0
+    return torch.stack([gx, gy], dim=-1)

@@ -46,7 +46,7 @@ from torch import nn
 from baseboostdepth_tpu_torch import geometry, losses
 from baseboostdepth_tpu_torch.data.augment import apply_flip, color_jitter
 from baseboostdepth_tpu_torch.device import require_device
-from baseboostdepth_tpu_torch.models import build_depth_net, build_pose_net
+from baseboostdepth_tpu_torch.models import DEPTH_IS_METRIC, build_depth_net, build_pose_net
 from baseboostdepth_tpu_torch.ops.resize import lanczos_pyramid, resize_bilinear
 from baseboostdepth_tpu_torch.ops.sampling import bilinear_sample, resolve_warp
 from baseboostdepth_tpu_torch.training.batch import num_temporal_slots
@@ -76,6 +76,10 @@ class StepStatic:
     dtype: str = "float32"
     warp_impl: str = "auto"  # auto | corner | pallas (ops/sampling.py::resolve_warp)
     photo_impl: str = "xla"  # xla | fused (ops/ssim.py::reprojection_loss)
+
+    @property
+    def metric_depth(self) -> bool:
+        return self.zoo in DEPTH_IS_METRIC
 
 
 # The main path's two curriculum stages (bench.py's step classes): the late

@@ -11,9 +11,12 @@ batch) come from checkpoint metadata, and the per-step automask noise is
 drawn from a generator seeded by a pure function of (seed, global step), so
 a resumed run replays the stream of an uninterrupted one.
 
-Not ported in this slice, and refused with NotImplementedError rather than
-ignored (see `check_supported`): multi-process training, pretrained encoder
-weights, SYNS validation, zoos other than md2 ResNet-18, the two-call warp
+With `log.syns_val` it also runs the SYNS val split (edge metrics) at every
+log step (trainer.py:646-663).
+
+Not ported yet, and refused with NotImplementedError rather than ignored
+(see `check_supported`): multi-process training, pretrained encoder
+weights, zoos other than md2 ResNet-18, the two-call warp
 (merged_warp=False) and pose_input_scale != 1.
 """
 
@@ -35,6 +38,7 @@ from baseboostdepth_tpu_torch.data.curriculum import Stage, stage_for_epoch
 from baseboostdepth_tpu_torch.data.loader import EvalLoader, KittiTrainLoader
 from baseboostdepth_tpu_torch.device import require_device
 from baseboostdepth_tpu_torch.evaluation.metrics import METRIC_NAMES, single_image_errors
+from baseboostdepth_tpu_torch.evaluation.syns import evaluate_syns
 from baseboostdepth_tpu_torch.training.checkpoint import CheckpointManager
 from baseboostdepth_tpu_torch.training.step import (
     StepStatic,
@@ -55,8 +59,6 @@ def check_supported(cfg: Config) -> None:
         unported.append("dist.enabled (multi-GPU training)")
     if cfg.model.weights_init == "pretrained":
         unported.append("model.weights_init='pretrained' (encoder import)")
-    if cfg.log.syns_val:
-        unported.append("log.syns_val (SYNS validation)")
     if cfg.model.zoo != "md2" or cfg.model.num_layers != 18:
         unported.append(f"model.zoo={cfg.model.zoo!r} num_layers={cfg.model.num_layers} "
                         "(only md2 ResNet-18 is ported)")
@@ -297,6 +299,8 @@ class Trainer:
                     self.save_image_panels(st_b, batch, seed, global_step)
                 if self.gt_depths is not None:
                     self.validate(st, global_step, epoch, bi, quick=cfg.log.quick_val_size)
+                if cfg.log.syns_val:
+                    self.validate_syns(global_step)
 
         # full validation at every epoch end (quick-val only subsamples the
         # in-epoch checks)
@@ -346,11 +350,24 @@ class Trainer:
             print(f"new best abs_rel {vals['abs_rel']:.4f} -> checkpoint saved")
 
     # ------------------------------------------------------------------
+    def validate_syns(self, global_step: int):
+        """SYNS edge-accuracy online validation (reference trainer.py:646-663,
+        its --SYNS_edge path), over the SYNS val split."""
+        try:
+            m = evaluate_syns(self.cfg, self.state.depth_net, file_name="val_files.txt",
+                              device=self.device)
+        except FileNotFoundError as e:
+            print(f"[syns-val] skipped (missing asset: {e})")
+            return
+        self.logger.log(global_step, {f"syns/{k}": v for k, v in m.items()})
+        print("syns-val:", " ".join(f"{k}={v:.4f}" for k, v in m.items()))
+
+    # ------------------------------------------------------------------
     def save_image_panels(self, st: StepStatic, batch, seed: int, global_step: int,
                           max_rows: int = 3):
         """Write a target | disp | automask | min-loss | warped-candidates
         grid PNG for a train batch (the observability the reference gets from
-        wandb image logging, trainer.py:736-772). Needs matplotlib."""
+        wandb image logging, trainer.py:736-772)."""
         from PIL import Image
 
         from baseboostdepth_tpu_torch.utils import colormap

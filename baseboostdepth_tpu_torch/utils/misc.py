@@ -8,6 +8,8 @@ import os
 
 import numpy as np
 
+from baseboostdepth_tpu_torch.utils import colormaps
+
 
 def readlines(path: str):
     with open(path) as f:
@@ -41,11 +43,30 @@ def normalize_image(x: np.ndarray) -> np.ndarray:
     return (x - mi) / d
 
 
-def colormap(x: np.ndarray, cmap: str = "plasma", normalize: bool = True) -> np.ndarray:
-    """[H, W] -> [H, W, 3] float colormap in [0, 1]; matplotlib is imported
-    here, so paths that draw no image never need it."""
-    import matplotlib
+def _lut(cmap: str) -> np.ndarray:
+    """[259, 3] float64: the 256 entries, then the under (first entry), over
+    (last entry) and bad (black) colours, as ListedColormap._init lays them."""
+    table = {"plasma": colormaps.PLASMA, "magma": colormaps.MAGMA}.get(cmap)
+    if table is None:
+        raise ValueError(f"colormap {cmap!r} is not carried (plasma, magma)")
+    lut = np.array(table, dtype=np.float64)
+    return np.concatenate([lut, lut[:1], lut[-1:], np.zeros((1, 3))])
 
-    cm = matplotlib.colormaps.get_cmap(cmap)
+
+def colormap(x: np.ndarray, cmap: str = "plasma", normalize: bool = True) -> np.ndarray:
+    """[H, W] -> [H, W, 3] float colormap in [0, 1], equal to
+    `matplotlib.colormaps[cmap](v)[..., :3]` without matplotlib: the lookup of
+    ListedColormap.__call__ (float v -> int(v * 256), v == 1 -> the last
+    entry, v < 0 -> under, v >= 1 -> over, NaN -> bad)."""
     v = normalize_image(x) if normalize else x
-    return cm(v)[..., :3]
+    xa = np.array(v, copy=True)
+    if xa.dtype.kind == "f":
+        xa *= 256
+        xa[xa == 256] = 255
+    under, over, bad = xa < 0, xa >= 256, np.isnan(xa)
+    with np.errstate(invalid="ignore"):
+        idx = xa.astype(int)
+    idx[under] = 256
+    idx[over] = 257
+    idx[bad] = 258
+    return _lut(cmap).take(idx, axis=0, mode="clip")

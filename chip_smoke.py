@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the CUDA kernels from ops/csrc/ (first use; the two libraries
+  2. builds the CUDA kernels from ops/csrc/ (first use; the four libraries
      in parallel), prints ptxas' register report and lists the kernels
      built;
   3. holds the corner-sweep kernel against its plain PyTorch version at the
@@ -22,10 +22,16 @@ In order, it
      their plain versions on the same frames as float32 (/ 255) and grid,
      and on a small two-channel case; the forward against the packed warp,
      the grid gradient against F.grid_sample's;
-  6. checks the step on a small input against the same step on the CPU,
+  6. runs the capability-probe tool (the seven probes of
+     tools/pallas_probe.py) through its entry point, counting the four probe
+     kernels' launches, then holds each kernel against its plain version and
+     the JAX tool's numpy references exactly, on wrapped and out-of-range
+     indices and clamped slice starts too, and times each (launch-bound at
+     these shapes);
+  7. checks the step on a small input against the same step on the CPU,
      with the default options, with photo_impl="fused", warp_impl="pallas",
      and with float frames;
-  7. trains the md2 main path at full width (640x192, batch 12, bf16
+  8. trains the md2 main path at full width (640x192, batch 12, bf16
      networks): 3 steps of the late stage (F=7, scale 0, tri-min +
      incremental + partial + decomp, merged warp) and 2 of the early stage
      (F=2, scales 0-3, direct poses), with the default options, with
@@ -33,11 +39,20 @@ In order, it
      float-planes warp); finite losses, moving parameters and BN
      statistics, and every kernel's launches counted in each run and held
      to the counts the step's structure implies;
-  8. runs the training entry point (cli.train) on a KITTI-raw tree of
-     random JPEGs it writes under build/: one epoch at the default
-     configuration, ending in a checkpoint, then again with two epochs,
-     which must resume from it;
-  9. prints timings (CUDA events, after warm-up) beside the card's name and
+  9. writes KITTI-raw, SYNS and KITTI-odometry trees of random images at
+     their published sizes under build/, exports the SYNS GT (cli.export_gt,
+     test and val), and runs the training entry point (cli.train): one
+     epoch at the default configuration, ending in a checkpoint, then again
+     with two epochs, which must resume from it, then a third epoch with
+     SYNS validation and image panels on;
+ 10. runs the evaluation and inference entry points on that checkpoint:
+     cli.evaluate_depth (eigen mono with --save_pred_disps, then
+     --ext_disp_to_eval on the saved stack, which must reproduce it
+     exactly; --post_process; --stereo; SYNS with --chamfer at full SYNS
+     size), cli.evaluate_pose, cli.infer on a folder and cli.visualize;
+     times predict_disparities and the chamfer search, and holds the card's
+     chamfer distances against the CPU's;
+ 11. prints timings (CUDA events, after warm-up) beside the card's name and
      power limit, a JSON line describing each kernel, and last
      {"ok": true, "device": {...}}.
 
@@ -60,8 +75,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 H, W, B = 192, 640, 12
+PROBE_KERNELS = ("probe_scale", "probe_gather_rows", "probe_gather_cols", "probe_row_slice")
 KERNELS = ("corner_sweep", "ssim_fused_fwd", "ssim_fused_bwd", "warp_packed_fwd",
-           "warp_packed_bwd", "warp_planes_fwd", "warp_planes_bwd")
+           "warp_packed_bwd", "warp_planes_fwd", "warp_planes_bwd", *PROBE_KERNELS)
 FUSED = dict(photo_impl="fused", warp_impl="pallas")
 
 # float32 operations per pixel, counted in the kernels' source (adds,
@@ -119,6 +135,7 @@ def bound(name, bytes_moved, pixels):
 
 
 def kernel_wrappers():
+    from baseboostdepth_tpu_torch.ops import probe_cuda as pc
     from baseboostdepth_tpu_torch.ops import ssim_cuda as sc
     from baseboostdepth_tpu_torch.ops import warp_cuda as wc
     from baseboostdepth_tpu_torch.ops import warp_planes as wp
@@ -126,7 +143,8 @@ def kernel_wrappers():
     return {"corner_sweep": wc.corner_sweep, "ssim_fused_fwd": sc.ssim_fused_fwd,
             "ssim_fused_bwd": sc.ssim_fused_bwd, "warp_packed_fwd": wc.warp_packed_fwd,
             "warp_packed_bwd": wc.warp_packed_bwd, "warp_planes_fwd": wp.warp_planes_fwd,
-            "warp_planes_bwd": wp.warp_planes_bwd}
+            "warp_planes_bwd": wp.warp_planes_bwd,
+            **{name: getattr(pc, name) for name in PROBE_KERNELS}}
 
 
 def reset_launches():
@@ -142,11 +160,12 @@ def build():
     """Build the kernel libraries at once, one nvcc each; print ptxas'
     report of each."""
     from baseboostdepth_tpu_torch.ops import cuda_build
+    from baseboostdepth_tpu_torch.ops import probe_cuda as pc
     from baseboostdepth_tpu_torch.ops import ssim_cuda as sc
     from baseboostdepth_tpu_torch.ops import warp_cuda as wc
     from baseboostdepth_tpu_torch.ops import warp_planes as wp
 
-    mods = (wc, sc, wp)
+    mods = (wc, sc, wp, pc)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:
         for f in [pool.submit(mod._lib) for mod in mods]:
@@ -509,6 +528,148 @@ def planes_phase(torch, card, k, inp):
     }
 
 
+def same_values(torch, a, b) -> bool:
+    """Equal shapes, NaN at the same places and equal values elsewhere."""
+    return (a.shape == b.shape and torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+def graph_ms(torch, fn, n=100) -> float:
+    """Device milliseconds per fn() call: n calls captured in a CUDA graph,
+    the graph replayed (no host launch cost between them)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return time_ms(torch, graph.replay, iters=10, warmup=2) / n
+
+
+def probe_bytes(case, out_numel) -> int:
+    """Bytes the probe's function must move on this run's data: the scale
+    reads and writes every element; a gather reads its indices, the distinct
+    valid source elements they name, and writes its output; the slice reads
+    its start and the rows it copies, and writes them."""
+    if case.op == "scale":
+        return 2 * case.args[0].nbytes
+    if case.op == "row_slice":
+        return 4 + 2 * out_numel * 4
+    src, idx = case.args
+    n = src.shape[0] if case.op == "gather_rows" else src.shape[1]
+    wrapped = np.where(idx < 0, idx.astype(np.int64) + n, idx)
+    valid = (wrapped >= 0) & (wrapped < n)
+    if case.op == "gather_rows":
+        flat = wrapped * src.shape[1] + np.arange(idx.shape[1])[None, :]
+    else:
+        flat = wrapped + np.arange(idx.shape[0])[:, None] * (src.shape[1] if src.shape[0] > 1 else 0)
+    distinct = np.unique(flat[valid]).size
+    return idx.nbytes + distinct * 4 + out_numel * 4
+
+
+def probe_phase(torch, card):
+    """The capability-probe tool on the card: its entry point (the seven
+    probes of tools/pallas_probe.py at the JAX tool's shapes and inputs)
+    with the launch counters set to 0 just before and read just after; then
+    each probe's kernel against its plain version and the JAX tool's numpy
+    reference exactly, again on wrapped and out-of-range indices and on
+    slice starts beyond both ends, and timed beside the library call for the
+    same function."""
+    import contextlib
+    import io
+
+    from baseboostdepth_tpu_torch.ops import probe_cuda as pc
+    from baseboostdepth_tpu_torch.tools import pallas_probe as tool
+
+    report = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(report):
+        failed = tool.main(device="cuda")
+    launches = read_launches()
+    print(report.getvalue(), end="")
+    check(failed == 0, f"probe tool: {failed} probe(s) failed")
+    expect = dict.fromkeys(KERNELS, 0)
+    expect.update(probe_scale=1, probe_gather_rows=2, probe_gather_cols=3, probe_row_slice=1)
+    check(launches == expect, f"probe tool: kernel launches {launches}, expected {expect}")
+
+    dev = torch.device("cuda", 0)
+    gen = np.random.default_rng(11)
+    library = {
+        "scale": lambda x: x * 2,
+        "gather_rows": lambda src, idx: torch.take_along_dim(src, idx, dim=0),
+        "gather_cols": lambda src, idx: torch.take_along_dim(src, idx, dim=1),
+        "row_slice": lambda src, start: src.narrow(0, 17, 8).clone(),
+    }
+    by_probe, checked = {}, 0
+    for case in tool.probe_cases():
+        kernel = getattr(pc, f"probe_{case.op}")
+        plain = getattr(pc, f"probe_{case.op}_reference")
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in case.args]
+        out_k, out_p = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        check(same_values(torch, out_k, out_p), f"probe {case.name}: kernel vs plain version")
+        check(np.array_equal(out_k.cpu().numpy(), case.expected),
+              f"probe {case.name}: kernel vs the JAX tool's numpy reference")
+        # wrapped and out-of-range indices, clamped starts: against the plain version
+        if case.op == "row_slice":
+            extra = [[args[0], torch.tensor([s], dtype=torch.int32, device=dev)]
+                     for s in (-1000, -65, -64, -9, -1, 0, 56, 57, 2**31 - 1)]
+        elif case.op != "scale":
+            src = args[0]
+            n = src.shape[0] if case.op == "gather_rows" else src.shape[1]
+            idx = gen.integers(-n - n // 4, n + n // 4, tuple(args[1].shape)).astype(np.int32)
+            idx.flat[:4] = (-n, -n - 1, n - 1, n)
+            extra = [[src, torch.from_numpy(idx).to(dev)]]
+        else:
+            extra = []
+        for xargs in extra:
+            check(same_values(torch, kernel(*xargs), plain(*xargs)),
+                  f"probe {case.name}: kernel vs plain version off the tool's inputs")
+            checked += 1
+
+        lib_args = [a.long() if a.dtype == torch.int32 else a for a in args]
+        ms = time_ms(torch, lambda: kernel(*args), iters=1000, warmup=20)
+        device_ms = graph_ms(torch, lambda: kernel(*args))
+        plain_ms = time_ms(torch, lambda: plain(*args), iters=200, warmup=5)
+        lib_ms = time_ms(torch, lambda: library[case.op](*lib_args), iters=1000, warmup=20)
+        lib_device_ms = graph_ms(torch, lambda: library[case.op](*lib_args))
+        nbytes = probe_bytes(case, out_k.numel())
+        by_probe[case.name] = {
+            "kernel": f"probe_{case.op}", "shape": [list(a.shape) for a in case.args],
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_device_ms": lib_device_ms, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        print(f"timing probe {case.name} (probe_{case.op}, {case.args[0].shape}): "
+              f"{ms * 1e3:.2f} us per call, {device_ms * 1e3:.2f} us on the device (graph), "
+              f"bound {nbytes / HBM_BYTES_PER_S * 1e6:.5f} us ({nbytes} B): launch-bound; "
+              f"plain {plain_ms * 1e3:.2f} us; library {lib_ms * 1e3:.2f} us per call, "
+              f"{lib_device_ms * 1e3:.2f} us on the device [{card}]")
+    print(f"kernel check: the four probe kernels equal their plain versions and the JAX "
+          f"tool's references exactly on its seven probes, and their plain versions on "
+          f"{checked} further cases (wrapped / out-of-range indices, clamped starts)")
+
+    library_calls = {"scale": "x * 2", "gather_rows": "torch.take_along_dim(src, idx, dim=0)",
+                     "gather_cols": "torch.take_along_dim(src, idx, dim=1)",
+                     "row_slice": "src.narrow(0, 17, 8).clone()"}
+    stats = {}
+    for case in tool.probe_cases():
+        name = f"probe_{case.op}"
+        mine = {k: v for k, v in by_probe.items() if v["kernel"] == name}
+        head = max(mine.values(), key=lambda v: v["bytes"])  # the largest of its probes
+        stats[name] = {
+            "max_abs_err": 0.0, "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": "bytes", "library_ms": head["library_ms"],
+            "library_call": library_calls[case.op] + " (int64 indices; no wrap or NaN fill)",
+            "device_ms": head["device_ms"], "library_device_ms": head["library_device_ms"],
+            "timed_probe": next(k for k, v in mine.items() if v is head),
+            "by_probe": mine, "launch_bound": True}
+    return {"launches": launches}, stats
+
+
 def as_float_frames(torch, batch):
     """The batch with its uint8 frames as float32 in [0, 1] (frames / 255)."""
     return dict(batch, frames=batch["frames"].to(torch.float32) / 255.0)
@@ -644,121 +805,361 @@ def step_phase(torch, card, name, steps, float_frames=False, **options):
     return out
 
 
-def write_kitti_tree(root: str, n_frames: int = 56, n_samples: int = 48) -> None:
-    """A KITTI-raw tree at the raw size (1242x375 JPEGs): one drive, both
-    cameras, smooth random images (a low-resolution random texture
-    upsampled), and splits/eigen_zhou/train_files_baselines.txt whose
-    baselines give windows of 2, 1 and 0 (stereo only) frames at the first
-    epochs' cutoff. No val_files.txt / gt_depths.npz: no validation."""
+KITTI_FOLDER = "2011_09_26/2011_09_26_drive_0001_sync"
+N_EVAL = 32  # eigen test images (two batches of 16)
+N_ODOM = 18  # odometry frames
+
+
+def smooth_image(rng, height, width) -> np.ndarray:
+    """A smooth random uint8 RGB image: a 12x40 random texture upsampled."""
     from PIL import Image
 
-    folder = "2011_09_26/2011_09_26_drive_0001_sync"
+    base = rng.integers(30, 220, (12, 40, 3), dtype=np.uint8)
+    return np.asarray(Image.fromarray(base).resize((width, height), Image.BILINEAR))
+
+
+def smooth_depth(rng, height, width, lo, hi) -> np.ndarray:
+    """A smooth random float32 depth map in [lo, hi]: a 6x20 random field
+    upsampled bilinearly, plus a near-to-far ramp down the rows."""
+    import cv2
+
+    field = cv2.resize(rng.random((6, 20)).astype(np.float32), (width, height),
+                       interpolation=cv2.INTER_LINEAR)
+    ramp = np.linspace(1.0, 0.0, height, dtype=np.float32)[:, None]
+    return (lo + (hi - lo) * (0.3 * field + 0.7 * ramp)).astype(np.float32)
+
+
+def write_trees(root: str, n_frames: int = 56, n_samples: int = 48) -> None:
+    """Trees at the datasets' published sizes, random images:
+    - KITTI raw (1242x375 JPEGs): one drive, both cameras;
+      splits/eigen_zhou/train_files_baselines.txt whose baselines give
+      windows of 2, 1 and 0 (stereo only) frames at the first epochs'
+      cutoff (no eigen_zhou val GT: no eigen validation in training);
+      splits/eigen/test_files.txt over N_EVAL left frames with smooth
+      synthetic GT at 375x1242 (gt_depths.npz);
+    - SYNS (1242x376 PNGs and .npy depths in (1, 115) m): one test and one
+      val scene, splits/SYNS/{test,val}_files.txt;
+    - KITTI odometry sequence 09 (1242x375 PNGs, N_ODOM frames),
+      splits/odom/test_files_09.txt and GT poses (1 m forward per frame)."""
+    from PIL import Image
+
     rng = np.random.default_rng(0)
     for cam in (2, 3):
-        d = os.path.join(root, "raw", folder, f"image_0{cam}", "data")
+        d = os.path.join(root, "raw", KITTI_FOLDER, f"image_0{cam}", "data")
         os.makedirs(d)
         for i in range(n_frames):
-            base = rng.integers(30, 220, (12, 40, 3), dtype=np.uint8)
-            img = Image.fromarray(base).resize((1242, 375), Image.BILINEAR)
-            img.save(os.path.join(d, f"{i:010d}.jpg"), quality=90)
+            Image.fromarray(smooth_image(rng, 375, 1242)).save(
+                os.path.join(d, f"{i:010d}.jpg"), quality=90)
     first = (n_frames - n_samples) // 2
     baselines = (0.05, 0.1, 0.0, 0.05, 0.2, 0.03)
-    lines = [f"{folder} {i} {'lr'[i % 2]} kt {baselines[i % len(baselines)]}"
+    lines = [f"{KITTI_FOLDER} {i} {'lr'[i % 2]} kt {baselines[i % len(baselines)]}"
              for i in range(first, first + n_samples)]
-    splits = os.path.join(root, "splits", "eigen_zhou")
-    os.makedirs(splits)
-    with open(os.path.join(splits, "train_files_baselines.txt"), "w") as f:
+    splits = os.path.join(root, "splits")
+    os.makedirs(os.path.join(splits, "eigen_zhou"))
+    with open(os.path.join(splits, "eigen_zhou", "train_files_baselines.txt"), "w") as f:
         f.write("\n".join(lines) + "\n")
+    os.makedirs(os.path.join(splits, "eigen"))
+    with open(os.path.join(splits, "eigen", "test_files.txt"), "w") as f:
+        f.write("\n".join(f"{KITTI_FOLDER} {i} l" for i in range(N_EVAL)) + "\n")
+    gt = np.empty(N_EVAL, dtype=object)
+    for i in range(N_EVAL):
+        gt[i] = smooth_depth(rng, 375, 1242, 2.0, 75.0)
+    np.savez_compressed(os.path.join(splits, "eigen", "gt_depths.npz"), data=gt)
+
+    os.makedirs(os.path.join(splits, "SYNS"))
+    syns_lines = []
+    for i in range(2):
+        folder = f"{i + 1:02d}"
+        os.makedirs(os.path.join(root, "syns", "images", folder))
+        os.makedirs(os.path.join(root, "syns", "depths", folder))
+        Image.fromarray(smooth_image(rng, 376, 1242)).save(
+            os.path.join(root, "syns", "images", folder, f"{i:02d}.png"))
+        np.save(os.path.join(root, "syns", "depths", folder, f"{i:02d}.npy"),
+                smooth_depth(rng, 376, 1242, 1.0, 115.0))
+        syns_lines.append(f"{folder} {i:02d}")
+    for name, line in zip(("test_files.txt", "val_files.txt"), syns_lines):
+        with open(os.path.join(splits, "SYNS", name), "w") as f:
+            f.write(line + "\n")
+
+    seq = os.path.join(root, "odom", "sequences", "09", "image_2")
+    os.makedirs(seq)
+    for i in range(N_ODOM):
+        Image.fromarray(smooth_image(rng, 375, 1242)).save(os.path.join(seq, f"{i:06d}.png"))
+    os.makedirs(os.path.join(splits, "odom"))
+    with open(os.path.join(splits, "odom", "test_files_09.txt"), "w") as f:
+        f.write("\n".join(f"09 {i} l" for i in range(N_ODOM)) + "\n")
+    poses = [np.c_[np.eye(3), [0.0, 0.0, float(i)]].reshape(-1) for i in range(N_ODOM)]
+    np.savetxt(os.path.join(root, "poses09.txt"), np.array(poses))
 
 
-def trainer_phase(torch, card, step_ms):
+def trainer_phase(torch, card, step_ms, root):
     """The training entry point at the default configuration (md2 RN18,
     640x192, batch 12, bf16, the full method with the curriculum, bucket_fs
-    at its default) on a KITTI tree written under build/: cli.train.main for
-    one epoch (4 steps, a metrics line at batch 2, ending in a checkpoint),
-    then the CLI's trainer with two epochs, which must resume from that
-    checkpoint at epoch 1 with the saved weights, and trains one more
-    epoch; then the loader alone over that epoch's batches. Image panels are off: matplotlib is not installed on the card's
-    machine (PERF.md)."""
+    at its default) on the trees under `root`: cli.train.main for one epoch
+    (4 steps, a metrics line at batch 2, ending in a checkpoint), then the
+    CLI's trainer with two epochs, which must resume from that checkpoint at
+    epoch 1 with the saved weights, and trains one more epoch; then the
+    loader alone over that epoch's batches. Those two runs draw no panels
+    and run no validation, so their times compare with earlier runs. A
+    third run trains epoch 2 with SYNS validation and image panels on: its
+    metrics.jsonl must hold syns/* metrics and panels/ a PNG."""
     from baseboostdepth_tpu_torch.cli import train as cli
     from baseboostdepth_tpu_torch.data.curriculum import stage_for_epoch
     from baseboostdepth_tpu_torch.data.loader import KittiTrainLoader
 
-    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    os.makedirs(build_dir, exist_ok=True)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_kitti_", dir=build_dir) as root:
-        t0 = time.perf_counter()
-        write_kitti_tree(root)
-        write_s = time.perf_counter() - t0
-        argv = ["--data.kt_path", os.path.join(root, "raw"),
-                "--data.splits_dir", os.path.join(root, "splits"),
-                "--log.log_dir", os.path.join(root, "logs"), "--log.model_name", "smoke",
-                "--log.log_frequency", "2", "--log.image_panels", "False",
-                "--optim.num_epochs", "1"]
-        reset_launches()
-        t0 = time.perf_counter()
-        tr1 = cli.main(argv, device="cuda")
-        torch.cuda.synchronize()
-        wall1 = time.perf_counter() - t0
-        steps1 = tr1.state.step
-        check(steps1 == tr1.steps_per_epoch == 4, f"trainer: {steps1} steps in the first epoch")
-        check(tr1.ckpt.latest_step() == steps1, "trainer: no checkpoint at the epoch's end")
-        saved = {f"{net}.{k}": v.detach().clone()
-                 for net, m in (("depth", tr1.state.depth_net), ("pose", tr1.state.pose_net))
-                 for k, v in m.state_dict().items()}
-        del tr1
+    argv = ["--data.kt_path", os.path.join(root, "raw"),
+            "--data.splits_dir", os.path.join(root, "splits"),
+            "--data.syns_path", os.path.join(root, "syns"),
+            "--log.log_dir", os.path.join(root, "logs"), "--log.model_name", "smoke",
+            "--log.log_frequency", "2", "--log.image_panels", "False",
+            "--optim.num_epochs", "1"]
+    reset_launches()
+    t0 = time.perf_counter()
+    tr1 = cli.main(argv, device="cuda")
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    steps1 = tr1.state.step
+    check(steps1 == tr1.steps_per_epoch == 4, f"trainer: {steps1} steps in the first epoch")
+    check(tr1.ckpt.latest_step() == steps1, "trainer: no checkpoint at the epoch's end")
+    saved = {f"{net}.{k}": v.detach().clone()
+             for net, m in (("depth", tr1.state.depth_net), ("pose", tr1.state.pose_net))
+             for k, v in m.state_dict().items()}
+    del tr1
 
-        tr2 = cli.build_trainer(argv + ["--optim.num_epochs", "2"], device="cuda")
-        check((tr2.start_epoch, tr2.start_batch, tr2.state.step) == (1, 0, steps1),
-              f"trainer: resumed at epoch {tr2.start_epoch} batch {tr2.start_batch} step "
-              f"{tr2.state.step}, expected epoch 1 batch 0 step {steps1}")
-        restored = {f"{net}.{k}": v
-                    for net, m in (("depth", tr2.state.depth_net), ("pose", tr2.state.pose_net))
-                    for k, v in m.state_dict().items()}
-        check(restored.keys() == saved.keys()
-              and all(torch.equal(saved[k], restored[k]) for k in saved),
-              "trainer: restored parameters differ from the saved ones")
-        t0 = time.perf_counter()
-        tr2.train()
-        torch.cuda.synchronize()
-        wall2 = time.perf_counter() - t0
-        launches = read_launches()
-        steps = tr2.state.step
-        check(steps == 2 * steps1, f"trainer: {steps} steps after the second epoch")
-        expect = dict.fromkeys(KERNELS, 0)
-        expect["corner_sweep"] = 4 * steps  # default options, 4 loss scales at epochs 0-1
-        check(launches == expect, f"trainer: kernel launches {launches}, expected {expect}")
-        with open(os.path.join(root, "logs", "smoke", "metrics.jsonl")) as f:
-            logged = [json.loads(ln) for ln in f]
-        check(len(logged) == 2 and all(np.isfinite(m["loss"]) for m in logged),
-              f"trainer: metrics lines {logged}")
-        ckpts = tr2.ckpt.all_steps()
-        check(ckpts == [steps1, steps], f"trainer: checkpoints {ckpts}")
+    tr2 = cli.build_trainer(argv + ["--optim.num_epochs", "2"], device="cuda")
+    check((tr2.start_epoch, tr2.start_batch, tr2.state.step) == (1, 0, steps1),
+          f"trainer: resumed at epoch {tr2.start_epoch} batch {tr2.start_batch} step "
+          f"{tr2.state.step}, expected epoch 1 batch 0 step {steps1}")
+    restored = {f"{net}.{k}": v
+                for net, m in (("depth", tr2.state.depth_net), ("pose", tr2.state.pose_net))
+                for k, v in m.state_dict().items()}
+    check(restored.keys() == saved.keys()
+          and all(torch.equal(saved[k], restored[k]) for k in saved),
+          "trainer: restored parameters differ from the saved ones")
+    t0 = time.perf_counter()
+    tr2.train()
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    launches = read_launches()
+    steps = tr2.state.step
+    check(steps == 2 * steps1, f"trainer: {steps} steps after the second epoch")
+    expect = dict.fromkeys(KERNELS, 0)
+    expect["corner_sweep"] = 4 * steps  # default options, 4 loss scales at epochs 0-2
+    check(launches == expect, f"trainer: kernel launches {launches}, expected {expect}")
+    metrics_file = os.path.join(root, "logs", "smoke", "metrics.jsonl")
+    with open(metrics_file) as f:
+        logged = [json.loads(ln) for ln in f]
+    check(len(logged) == 2 and all(np.isfinite(m["loss"]) for m in logged),
+          f"trainer: metrics lines {logged}")
+    ckpts = tr2.ckpt.all_steps()
+    check(ckpts == [steps1, steps], f"trainer: checkpoints {ckpts}")
 
-        # the loader alone over epoch 1's batches: its share of the epoch
-        cfg = tr2.cfg
-        t0 = time.perf_counter()
-        n_loaded = sum(1 for _ in KittiTrainLoader(
-            tr2.train_index, stage_for_epoch(1, cfg.method.trimin), cfg.optim.batch_size,
-            cfg.data.height, cfg.data.width, trimin=cfg.method.trimin,
-            num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch,
-            seed=cfg.seed * 1000 + 1))
-        loader_s = time.perf_counter() - t0
-        check(n_loaded == steps1, f"trainer: the loader gave {n_loaded} batches")
+    # the loader alone over epoch 1's batches: its share of the epoch
+    cfg = tr2.cfg
+    t0 = time.perf_counter()
+    n_loaded = sum(1 for _ in KittiTrainLoader(
+        tr2.train_index, stage_for_epoch(1, cfg.method.trimin), cfg.optim.batch_size,
+        cfg.data.height, cfg.data.width, trimin=cfg.method.trimin,
+        num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch,
+        seed=cfg.seed * 1000 + 1))
+    loader_s = time.perf_counter() - t0
+    check(n_loaded == steps1, f"trainer: the loader gave {n_loaded} batches")
+    del tr2
+
+    # epoch 2 with SYNS validation and image panels at batch 2
+    reset_launches()
+    tr3 = cli.build_trainer(argv + ["--optim.num_epochs", "3", "--log.syns_val", "True",
+                                    "--log.image_panels", "True"], device="cuda")
+    t0 = time.perf_counter()
+    tr3.train()
+    torch.cuda.synchronize()
+    wall3 = time.perf_counter() - t0
+    launches3 = read_launches()
+    check(tr3.state.step == 3 * steps1, f"trainer: {tr3.state.step} steps after the third epoch")
+    expect["corner_sweep"] = 4 * steps1
+    check(launches3 == expect, f"trainer, syns-val run: kernel launches {launches3}")
+    with open(metrics_file) as f:
+        syns_logged = [m for m in map(json.loads, f) if "syns/abs_rel" in m]
+    check(len(syns_logged) == 1 and all(np.isfinite(v) for v in syns_logged[0].values()),
+          f"trainer: syns-val lines {syns_logged}")
+    panels = os.listdir(os.path.join(root, "logs", "smoke", "panels"))
+    check(len(panels) == 1 and os.path.getsize(
+        os.path.join(root, "logs", "smoke", "panels", panels[0])) > 0,
+        f"trainer: panels {panels}")
+    del tr3
+
     logged_rate = [m["imgs_per_sec"] for m in logged]
     epoch_rate = steps1 * B / wall2
-    print(f"trainer: two runs of cli.train (epoch 0, then resumed at epoch 1 from step "
-          f"{steps1}), {steps} steps, launches {launches['corner_sweep']} corner_sweep; "
-          f"wrote 112 JPEGs in {write_s:.1f} s")
+    syns_metrics = {k: v for k, v in syns_logged[0].items() if k.startswith("syns/")}
+    print(f"trainer: three runs of cli.train (epoch 0, then resumed at epoch 1 from step "
+          f"{steps1}, then epoch 2 with SYNS validation and panels), {3 * steps1} steps, "
+          f"launches {launches['corner_sweep'] + launches3['corner_sweep']} corner_sweep; "
+          f"syns-val {json.dumps(syns_metrics)}; panel {panels[0]}")
     print(f"timing trainer: logged imgs/s (wall clock since the epoch's start, loader "
           f"included) {[round(r, 2) for r in logged_rate]}; run 1 {wall1:.2f} s "
           f"(networks' init, {steps1} steps, checkpoint), run 2 train() {wall2:.2f} s "
           f"({epoch_rate:.2f} imgs/s over the epoch); the loader alone over that epoch "
           f"{loader_s:.2f} s ({steps1 * B / loader_s:.2f} imgs/s); the step alone (early_F2 "
-          f"phase) {step_ms:.2f} ms/step = {B / step_ms * 1e3:.2f} imgs/s [{card}]")
-    return {"launches": launches, "logged_imgs_per_s": logged_rate,
-            "epoch_imgs_per_s": epoch_rate, "run1_s": wall1, "run2_train_s": wall2,
-            "loader_epoch_s": loader_s}
+          f"phase) {step_ms:.2f} ms/step = {B / step_ms * 1e3:.2f} imgs/s; run 3 train() "
+          f"with a panel and SYNS validation {wall3:.2f} s [{card}]")
+    return {"launches": {n: launches[n] + launches3[n] for n in KERNELS},
+            "logged_imgs_per_s": logged_rate, "epoch_imgs_per_s": epoch_rate, "run1_s": wall1,
+            "run2_train_s": wall2, "run3_syns_val_panels_s": wall3, "loader_epoch_s": loader_s}
+
+
+def finite_metrics(what, result: dict) -> dict:
+    check(result and all(np.isfinite(v) for v in result.values()), f"{what}: metrics {result}")
+    return result
+
+
+def non_empty(*paths) -> None:
+    for path in paths:
+        check(os.path.isfile(path) and os.path.getsize(path) > 0, f"missing or empty: {path}")
+
+
+def eval_phase(torch, card, root):
+    """The evaluation and inference entry points on the trainer phase's
+    checkpoint (md2 RN18 at 640x192, bf16; the config cli.train saved):
+    evaluate_depth on the eigen split (mono with --save_pred_disps, then
+    --ext_disp_to_eval on the saved stack, which must reproduce the live
+    metrics exactly; --post_process; --stereo), on SYNS with --chamfer at
+    full SYNS size; evaluate_pose on the odometry sequence; infer on a
+    folder; visualize into an .avi. Then timings: predict_disparities'
+    images/s (loader included) and the network's alone, the chamfer search
+    on one full-size SYNS pair, and the card's chamfer distances against the
+    CPU's on a 3000/4500-point cloud."""
+    from baseboostdepth_tpu_torch.cli import evaluate_depth, evaluate_pose, infer, visualize
+    from baseboostdepth_tpu_torch.config import Config
+    from baseboostdepth_tpu_torch.data import kitti
+    from baseboostdepth_tpu_torch.evaluation.depth import (
+        eval_static,
+        make_disp_forward,
+        predict_disparities,
+        restore_state,
+    )
+    from baseboostdepth_tpu_torch.evaluation.syns import backproject_points, syns_intrinsics
+    from baseboostdepth_tpu_torch.ops.chamfer import chamfer_nn_distances
+
+    config = os.path.join(root, "logs", "smoke", "config.json")
+    ckpt = os.path.join(root, "logs", "smoke", "checkpoints")
+    base = ["--config", config, "--checkpoint", ckpt]
+    saved = os.path.join(root, "disps.npy")
+    times = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    mono = finite_metrics("eigen mono", timed("eigen_mono", lambda: evaluate_depth.main(
+        base + ["--save_pred_disps", saved])))
+    non_empty(saved)
+    check(np.load(saved).shape[0] == N_EVAL, "saved disparities' count")
+    ext = timed("ext_disp", lambda: evaluate_depth.main(base + ["--ext_disp_to_eval", saved]))
+    check(ext == mono, f"--ext_disp_to_eval {ext} differs from the live metrics {mono}")
+    pp = finite_metrics("eigen post_process", timed("eigen_pp", lambda: evaluate_depth.main(
+        base + ["--post_process"])))
+    stereo = finite_metrics("eigen stereo", timed("eigen_stereo", lambda: evaluate_depth.main(
+        base + ["--stereo"])))
+    check("median_ratio" not in stereo, "stereo protocol median-scaled")
+    for name in ("gt_depths", "gt_edges", "gt_depths_val", "gt_edges_val"):
+        non_empty(os.path.join(root, "splits", "SYNS", f"{name}.npz"))
+    syns = finite_metrics("SYNS", timed("syns_chamfer", lambda: evaluate_depth.main(
+        base + ["--split", "SYNS", "--chamfer"])))
+    check({"f1", "iou", "edge_acc"} <= syns.keys(), f"SYNS metrics {syns}")
+
+    odom_cfg = Config.load(config)
+    odom_cfg.data.kt_path = os.path.join(root, "odom")
+    odom_config = os.path.join(root, "odom.json")
+    odom_cfg.save(odom_config)
+    ates = finite_metrics("odometry", timed("pose", lambda: evaluate_pose.main(
+        ["--config", odom_config, "--checkpoint", ckpt, "--sequence", "9",
+         "--gt_poses", os.path.join(root, "poses09.txt")])))
+
+    frames = os.path.join(root, "raw", KITTI_FOLDER, "image_02", "data")
+    folder = os.path.join(root, "infer_in")
+    os.makedirs(folder)
+    for i in range(4):
+        os.symlink(os.path.join(frames, f"{i:010d}.jpg"), os.path.join(folder, f"{i:010d}.jpg"))
+    written = timed("infer", lambda: infer.main(base[:4] + [
+        "--image_path", folder, "--out_dir", os.path.join(root, "infer_out")]))
+    check(len(written) == 8, f"infer wrote {written}")
+    non_empty(*written)
+    gt = np.load(os.path.join(root, "splits", "eigen", "gt_depths.npz"), allow_pickle=True)["data"]
+    np.savez_compressed(os.path.join(root, "gt4.npz"), data=gt[:4])
+    video = timed("visualize", lambda: visualize.main([
+        "--image_dir", folder, "--out", os.path.join(root, "compare.avi"),
+        "--model", f"{config}:{ckpt}", "--gt_npz", os.path.join(root, "gt4.npz")]))
+    non_empty(video)
+
+    # predict_disparities alone (EvalLoader decode + LANCZOS included), and
+    # the network alone on a batch of 16 (CUDA events)
+    cfg = Config.load(config)
+    st = eval_static(cfg)
+    state = restore_state(cfg, ckpt)
+    index = kitti.KittiRawIndex(cfg.data.kt_path,
+                                os.path.join(root, "splits", "eigen", "test_files.txt"))
+    paths = [index.image_path(s.folder, s.frame_index, s.side) for s in index.samples]
+    predict_disparities(st, state.depth_net, paths[:16])  # warm-up
+    disps = timed("predict", lambda: predict_disparities(st, state.depth_net, paths))
+    check(disps.shape == (N_EVAL, st.height, st.width) and np.isfinite(disps).all(),
+          "predict_disparities")
+    fwd = make_disp_forward(st)
+    x = torch.rand((16, st.height, st.width, 3), device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(3))
+    net_ms = time_ms(torch, lambda: fwd(state.depth_net, x), iters=10)
+    predict_rate = N_EVAL / times["predict"]
+    net_rate = 16 / net_ms * 1e3
+
+    # chamfer on one full-size SYNS pair: the GT cloud against a perturbed copy
+    gt_syns = np.load(os.path.join(root, "splits", "SYNS", "gt_depths.npz"),
+                      allow_pickle=True)["data"][0]
+    rng = np.random.default_rng(1)
+    pred_syns = gt_syns * rng.uniform(0.97, 1.03, gt_syns.shape).astype(np.float32)
+    mask = (gt_syns > 1e-3) & (gt_syns < 125.0)
+    inv_K3 = np.linalg.pinv(syns_intrinsics())
+    p_pts = backproject_points(pred_syns, inv_K3, mask)
+    g_pts = backproject_points(gt_syns, inv_K3, mask)
+    chamfer_nn_distances(p_pts[:50000], g_pts[:50000])  # warm-up
+    pnn, gnn = timed("chamfer_pair", lambda: chamfer_nn_distances(p_pts, g_pts))
+    check(np.isfinite(pnn).all() and np.isfinite(gnn).all(), "chamfer distances")
+
+    # the card's chamfer against the CPU's on a 3000/4500-point cloud at SYNS depths
+    p = np.c_[rng.uniform(-60, 60, 3000), rng.uniform(-10, 10, 3000),
+              rng.uniform(1, 125, 3000)].astype(np.float32)
+    q = np.concatenate([p[:2000] + rng.normal(0, 0.05, (2000, 3)),
+                        np.c_[rng.uniform(-60, 60, 2500), rng.uniform(-10, 10, 2500),
+                              rng.uniform(1, 125, 2500)]]).astype(np.float32)
+    card_nn = chamfer_nn_distances(p, q)
+    cpu_nn = chamfer_nn_distances(p, q, device="cpu")
+    cham_err = max(float(np.abs(a - b).max()) for a, b in zip(card_nn, cpu_nn))
+    cham_d2_err = max(float(np.abs(a.astype(np.float64) ** 2 - b.astype(np.float64) ** 2).max())
+                      for a, b in zip(card_nn, cpu_nn))
+    # float32 rounding of |p|^2 + |q|^2 - 2 p.q: a few units in the last
+    # place of the largest norm (~1.6e4 m^2, ulp ~2e-3)
+    d2_bound = 16 * np.spacing(np.float32(max((p * p).sum(1).max(), (q * q).sum(1).max())))
+    check(cham_d2_err <= d2_bound, f"chamfer card vs CPU: squared distances {cham_d2_err} apart "
+                                   f"(bound {d2_bound})")
+
+    print(f"eval: eigen mono {json.dumps(mono)}; post_process abs_rel {pp['abs_rel']:.4f}; "
+          f"stereo abs_rel {stereo['abs_rel']:.4f}; --ext_disp_to_eval equal to the live run; "
+          f"SYNS {json.dumps(syns)}; odometry {json.dumps(ates)}; infer wrote {len(written)} "
+          f"files; visualize wrote {os.path.getsize(video)} B")
+    print(f"timing eval: predict_disparities {predict_rate:.2f} images/s over {N_EVAL} KITTI "
+          f"frames (batch 16, {cfg.model.dtype}, decode and LANCZOS resize of 1242x375 JPEGs "
+          f"included); the network alone {net_ms:.3f} ms per batch of 16 = {net_rate:.1f} "
+          f"images/s; CLI wall clock {json.dumps({k: round(v, 2) for k, v in times.items()})} "
+          f"[{card}]")
+    print(f"timing chamfer: {times['chamfer_pair'] * 1e3:.1f} ms for one full-size SYNS pair "
+          f"({len(p_pts)} x {len(g_pts)} points, both directions); card vs CPU on 3000/4500 "
+          f"points at SYNS depths: max |distance difference| {cham_err:.3e} m, squared "
+          f"{cham_d2_err:.3e} m^2 (bound {d2_bound:.3e}) [{card}]")
+    return {"predict_images_per_s": predict_rate, "net_ms_per_16": net_ms,
+            "net_images_per_s": net_rate, "chamfer_pair_ms": times["chamfer_pair"] * 1e3,
+            "chamfer_points": [len(p_pts), len(g_pts)], "chamfer_card_vs_cpu_max_abs": cham_err,
+            "cli_s": times}
 
 
 def main() -> int:
@@ -781,10 +1182,13 @@ def main() -> int:
              **planes_phase(torch, card, corner, inputs)}
     del inputs
     torch.cuda.empty_cache()
+    probe_run, probe_stats = probe_phase(torch, card)
+    stats.update(probe_stats)
     parity_phase(torch)
     parity_phase(torch, **FUSED)
     parity_phase(torch, float_frames=True)
     runs = {
+        "probe_tool": probe_run,
         "late_F7": step_phase(torch, card, "late_F7", steps=3),
         "early_F2": step_phase(torch, card, "early_F2", steps=2),
         "late_F7_fused": step_phase(torch, card, "late_F7", steps=3, **FUSED),
@@ -793,32 +1197,58 @@ def main() -> int:
         "early_F2_float": step_phase(torch, card, "early_F2", steps=2, float_frames=True),
     }
     steps = {name: {k: r[k] for k in ("ms_per_step", "peak_gb", "loss_rel_vs_uint8") if k in r}
-             for name, r in runs.items()}
+             for name, r in runs.items() if name != "probe_tool"}
     print(f"steps (default options, {FUSED}, float frames): {json.dumps(steps)} [{card}]")
-    runs["trainer"] = trainer_phase(torch, card, runs["early_F2"]["ms_per_step"])
+
+    from baseboostdepth_tpu_torch.cli import export_gt
+
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trees_", dir=build_dir) as root:
+        t0 = time.perf_counter()
+        write_trees(root)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gt_args = ["--split", "SYNS", "--syns_path", os.path.join(root, "syns"),
+                   "--splits_dir", os.path.join(root, "splits")]
+        export_gt.main(gt_args)
+        export_gt.main(gt_args + ["--val"])
+        export_s = time.perf_counter() - t0
+        print(f"trees: KITTI raw, eigen test ({N_EVAL} frames), SYNS (1 test + 1 val scene), "
+              f"odometry ({N_ODOM} frames) written in {write_s:.1f} s; SYNS GT exported "
+              f"(test and val) in {export_s:.1f} s")
+        runs["trainer"] = trainer_phase(torch, card, runs["early_F2"]["ms_per_step"], root)
+        evals = eval_phase(torch, card, root)
     launches = {n: sum(r["launches"][n] for r in runs.values()) for n in KERNELS}
     check(all(launches.values()), f"a kernel of the path never launched: {launches}")
 
+    probe = "tools/pallas_probe.py"
     sources = {"corner_sweep": "corner_sweep.cu", "ssim_fused_fwd": "ssim_fused.cu",
                "ssim_fused_bwd": "ssim_fused.cu", "warp_packed_fwd": "warp_packed.cu",
                "warp_packed_bwd": "warp_packed.cu", "warp_planes_fwd": "warp_planes.cu",
-               "warp_planes_bwd": "warp_planes.cu"}
+               "warp_planes_bwd": "warp_planes.cu", **dict.fromkeys(PROBE_KERNELS, "probe.cu")}
     replaces = {"corner_sweep": "baseboostdepth_tpu/ops/warp_pallas.py:525",
                 "ssim_fused_fwd": "baseboostdepth_tpu/ops/ssim_pallas.py:59",
                 "ssim_fused_bwd": "baseboostdepth_tpu/ops/ssim_pallas.py:109",
                 "warp_packed_fwd": "baseboostdepth_tpu/ops/warp_pallas.py:236",
                 "warp_packed_bwd": "baseboostdepth_tpu/ops/warp_pallas.py:254",
                 "warp_planes_fwd": "baseboostdepth_tpu/ops/warp_pallas.py:276",
-                "warp_planes_bwd": "baseboostdepth_tpu/ops/warp_pallas.py:289"}
+                "warp_planes_bwd": "baseboostdepth_tpu/ops/warp_pallas.py:289",
+                "probe_scale": f"{probe}:36", "probe_gather_rows": f"{probe}:50",
+                "probe_gather_cols": f"{probe}:80", "probe_row_slice": f"{probe}:132"}
+    also_replaces = {"probe_gather_rows": [f"{probe}:65"],
+                     "probe_gather_cols": [f"{probe}:95", f"{probe}:114"]}
     entries = []
     for name in KERNELS:
         entries.append({
             "name": name, "route": "cuda",
             "source": f"baseboostdepth_tpu_torch/ops/csrc/{sources[name]}",
             "replaces": replaces[name], "launches": launches[name],
+            **({"also_replaces": also_replaces[name]} if name in also_replaces else {}),
             **stats[name],
             "launches_by_run": {run: r["launches"][name] for run, r in runs.items()},
         })
+    print(f"eval path: {json.dumps(evals)} [{card}]")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

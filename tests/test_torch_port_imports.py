@@ -48,6 +48,16 @@ def test_every_port_module_was_imported(probe):
                  "baseboostdepth_tpu_torch.data.loader", "baseboostdepth_tpu_torch.data.curriculum",
                  "baseboostdepth_tpu_torch.data.kitti", "baseboostdepth_tpu_torch.data.kitti_utils",
                  "baseboostdepth_tpu_torch.evaluation.metrics",
-                 "baseboostdepth_tpu_torch.utils.misc", "baseboostdepth_tpu_torch.cli.train"):
+                 "baseboostdepth_tpu_torch.utils.misc", "baseboostdepth_tpu_torch.cli.train",
+                 "baseboostdepth_tpu_torch.utils.colormaps",
+                 "baseboostdepth_tpu_torch.ops.chamfer", "baseboostdepth_tpu_torch.ops.probe_cuda",
+                 "baseboostdepth_tpu_torch.evaluation.depth",
+                 "baseboostdepth_tpu_torch.evaluation.syns",
+                 "baseboostdepth_tpu_torch.evaluation.pose",
+                 "baseboostdepth_tpu_torch.cli.evaluate_depth",
+                 "baseboostdepth_tpu_torch.cli.evaluate_pose",
+                 "baseboostdepth_tpu_torch.cli.export_gt", "baseboostdepth_tpu_torch.cli.infer",
+                 "baseboostdepth_tpu_torch.cli.visualize",
+                 "baseboostdepth_tpu_torch.tools.pallas_probe"):
         assert name in imported
-    assert len(imported) >= 33
+    assert len(imported) >= 46
