@@ -14,8 +14,10 @@ In order, it
      exactly equal, the blended warp and its grid gradient against the plain
      float warp;
   4. holds the fused SSIM forward and backward kernels against their plain
-     versions at the late stage's photometric shape (84 images of 192x640,
-     with a region where prediction and target are tied), and the packed
+     versions (forward exactly equal) at the main path's photometric shapes
+     (84, 72, 60 and 48 images of 192x640), at ragged shapes and on inputs
+     whose data pointers are not 16-byte aligned, each with a region where
+     prediction and target are tied; times both at N=84 and N=60; the packed
      warp's forward and backward kernels against theirs and against the
      corner-plane warp at the shape of step 3;
   5. holds the float-planes warp's forward and backward kernels against
@@ -81,18 +83,20 @@ KERNELS = ("corner_sweep", "ssim_fused_fwd", "ssim_fused_bwd", "warp_packed_fwd"
 FUSED = dict(photo_impl="fused", warp_impl="pallas")
 
 # float32 operations per pixel, counted in the kernels' source (adds,
-# multiplies, divides, compares; index arithmetic not counted). SSIM
-# forward: per channel 57 for the row sums of x, y, x^2, y^2, xy, 15 for the
-# window means, 6 for the variances, 14 for SSIM's numerator and
+# multiplies, divides, compares; an FMA counts 2; index arithmetic not
+# counted). SSIM forward, per channel: 19 for the row sums of x, y, x^2,
+# y^2, xy (once per row: they slide down the strip), 5 to carry them, 10 for
+# the window means, 6 for the variances, 13 for SSIM's numerator and
 # denominator, 5 for the divide and clip, 7 for L1 and the weighted sum.
-# SSIM backward: the forward's moments and quotient (97 per channel), 17
-# for the chain through the clip and the quotient, 54 for the three 3x3
-# adjoint sums, 12 for the final combination. Packed warp: per channel 16
-# to unpack four texels and 9 to blend (forward) or 14 for the two
-# coordinate derivatives and their sums (backward), plus 4 for the weights.
+# SSIM backward, per channel: the same 40 up to the variances and 13 for
+# the numerator and denominator, 23 for the mask and M, S1, S2, 24 for the
+# separable adjoint (3 + 3 weighted three-tap sums, as FMAs), 10 for the
+# final combination. Packed warp: per channel 16 to unpack four texels and
+# 9 to blend (forward) or 14 for the two coordinate derivatives and their
+# sums (backward), plus 4 for the weights.
 # Float-planes warp: per channel 9 to blend (forward) or 14 (backward), plus
 # 4 for the weights.
-OPS_PER_PIXEL = {"ssim_fused_fwd": 3 * 104, "ssim_fused_bwd": 3 * 180,
+OPS_PER_PIXEL = {"ssim_fused_fwd": 3 * 65, "ssim_fused_bwd": 3 * 110,
                  "warp_packed_fwd": 3 * 25 + 4, "warp_packed_bwd": 3 * 30 + 4,
                  "warp_planes_fwd": 3 * 9 + 4, "warp_planes_bwd": 3 * 14 + 4}
 
@@ -173,7 +177,8 @@ def build():
     build_s = time.perf_counter() - t0
     for mod in mods:
         for line in cuda_build.build_log(mod.LIB_NAME, mod.SOURCES).splitlines():
-            if "ptxas info" in line and ("registers" in line or "Compiling" in line):
+            if ("ptxas info" in line and ("registers" in line or "Compiling" in line)
+                    or "spill" in line):
                 print("build:", line.strip())
     print(f"built kernels: {json.dumps(list(KERNELS))} ({build_s:.1f} s incl. load, "
           f"{len(mods)} libraries built in parallel)")
@@ -275,81 +280,156 @@ def kernel_phase(torch, card):
     return stats, dict(frames=frames, grid=grid, x=x, y=y, ct=ct)
 
 
+# (N, H, W) of the SSIM checks: the main path's late (12 samples x 7 and x 6
+# slots) and early (x 5, x 4) shapes, then ragged ones: W % 4 != 0, the
+# minimum image, H and W one past a multiple of the tiles, H not a multiple
+# of the strip height, several strips and tiles
+SSIM_SHAPES = ((B * 7, H, W), (B * 6, H, W), (B * 5, H, W), (B * 4, H, W), (3, 17, 29),
+               (1, 2, 2), (2, 193, 641), (4, 75, 300))
+# shapes whose pred, target, g start 1, 2, 3 floats into a larger buffer:
+# data pointers off 16-byte alignment
+SSIM_MISALIGNED = ((6, H, W), (3, 40, 101))
+SSIM_TIMED = (B * 7, B * 5)  # the late and early main-slot calls
+
+
+def ssim_inputs(torch, shape, seed, offsets=(0, 0, 0)):
+    """(pred, target, g) at shape (N, H, W) and the tied block's size:
+    a textured target (3x3-smoothed noise) and a warped-like prediction, the
+    target shifted by one pixel plus noise, equal to it on the top-left
+    quarter (a static region: q = 0 over whole windows) that meets the
+    image's corner, where the reflect fold acts. Each tensor is a contiguous
+    view `offset` floats into a buffer of its own."""
+    dev = torch.device("cuda", 0)
+    n, h, w = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.rand((n, 3, h, w), device=dev, generator=gen)
+    tgt = torch.nn.functional.avg_pool2d(noise, 3, 1, 1, count_include_pad=False)
+    tgt = tgt.permute(0, 2, 3, 1)
+    pred = torch.roll(tgt, 1, dims=2) + 0.05 * torch.randn(tgt.shape, device=dev, generator=gen)
+    pred = pred.clamp(0.0, 1.0)
+    tie = (h // 4, w // 4)
+    pred[:, :tie[0], :tie[1]] = tgt[:, :tie[0], :tie[1]]
+    g = torch.rand((n, h, w, 1), device=dev, generator=gen)
+
+    def placed(x, offset):
+        buf = torch.empty(x.numel() + offset, device=dev)
+        return buf[offset:].view(x.shape).copy_(x)
+
+    return tuple(placed(x, o) for x, o in zip((pred, tgt, g), offsets)), tie
+
+
+def ssim_checks(torch):
+    """Both SSIM kernels against their plain versions at SSIM_SHAPES and
+    SSIM_MISALIGNED: the forward exactly equal, the backward within 1e-4 of
+    its largest entry and exactly 0 inside the tied block."""
+    from baseboostdepth_tpu_torch.ops import ssim_cuda as sc
+
+    cases = [(s, (0, 0, 0)) for s in SSIM_SHAPES] + [(s, (1, 2, 3)) for s in SSIM_MISALIGNED]
+    results = []
+    for seed, (shape, offsets) in enumerate(cases):
+        (pred, tgt, g), (th, tw) = ssim_inputs(torch, shape, seed, offsets)
+        label = f"{shape}" + (f" at float offsets {offsets}" if any(offsets) else "")
+        if any(offsets):
+            check(all(t.data_ptr() % 16 for t in (pred, tgt, g)), f"{label}: aligned inputs")
+        out_k = sc.ssim_fused_fwd(pred, tgt)
+        out_p = sc.ssim_fused_fwd_reference(pred, tgt)
+        gx_k = sc.ssim_fused_bwd(pred, tgt, g)
+        gx_p = sc.ssim_fused_bwd_reference(pred, tgt, g)
+        torch.cuda.synchronize()
+        check(out_k.shape == (*shape, 1) and gx_k.shape == (*shape, 3), f"{label}: SSIM shapes")
+        check(bool(torch.isfinite(out_k).all() and torch.isfinite(gx_k).all()),
+              f"{label}: SSIM non-finite")
+        fwd_err = float((out_k - out_p).abs().max())
+        check(torch.equal(out_k, out_p), f"{label}: SSIM forward differs from its plain "
+                                         f"version by {fwd_err}")
+        diff = (gx_k - gx_p).abs()
+        bwd_err = float(diff.max())
+        bwd_rel = bwd_err / float(gx_p.abs().max())
+        if bwd_rel > 1e-4:
+            at = [int(v) for v in torch.nonzero(diff == diff.max())[0]]
+            check(False, f"{label}: SSIM backward differs from its plain version by {bwd_rel} "
+                         f"(relative) at {at}")
+        # inside the tied block every window has q = 0 (inactive) and x = y
+        tied = None
+        if th >= 5 and tw >= 5:
+            tied = float(gx_k[:, 2:th - 2, 2:tw - 2].abs().max())
+            check(tied == 0.0, f"{label}: SSIM backward inside the tied block: {tied}, "
+                               "expected 0")
+        results.append({"shape": list(shape), "offsets": list(offsets), "fwd_equal": True,
+                        "bwd_max_abs_err": bwd_err, "bwd_max_rel_err": bwd_rel,
+                        "tied_block_zero": tied is not None})
+        print(f"kernel check: ssim_fused_fwd equal to its plain version, ssim_fused_bwd max abs "
+              f"err {bwd_err:.3e} ({bwd_rel:.3e} of its largest value)"
+              f"{', tied block gradient 0' if tied is not None else ''}, at {label}")
+        del pred, tgt, g, out_k, out_p, gx_k, gx_p, diff
+    torch.cuda.empty_cache()
+    return results
+
+
 def ssim_phase(torch, card):
-    """The fused SSIM kernels against their plain versions at the late
-    stage's photometric shape: 84 images (12 samples x 7 warp slots)."""
+    """The fused SSIM kernels against their plain versions (ssim_checks),
+    then timed at the late and early main-slot shapes (N = 84 and 60 images
+    of 192x640)."""
     from baseboostdepth_tpu_torch.ops import ssim as ts
     from baseboostdepth_tpu_torch.ops import ssim_cuda as sc
 
-    dev = torch.device("cuda", 0)
-    N = B * 7
-    gen = torch.Generator(device=dev).manual_seed(2)
-    # a textured target (3x3-smoothed noise) and a warped-like prediction:
-    # the target shifted by one pixel plus noise, equal to it on one block
-    # (a static region: q = 0 over whole windows) that meets the image's
-    # corner, where the reflect fold acts
-    noise = torch.rand((N, 3, H, W), device=dev, generator=gen)
-    tgt = torch.nn.functional.avg_pool2d(noise, 3, 1, 1, count_include_pad=False)
-    tgt = tgt.permute(0, 2, 3, 1).contiguous()
-    pred = torch.roll(tgt, 1, dims=2) + 0.05 * torch.randn(tgt.shape, device=dev, generator=gen)
-    pred = pred.clamp(0.0, 1.0)
-    pred[:, :48, :160] = tgt[:, :48, :160]
-    pred = pred.contiguous()
-    g = torch.rand((N, H, W, 1), device=dev, generator=gen)
+    checks = ssim_checks(torch)
+    late = checks[0]
+    by_n = {}
+    for n in SSIM_TIMED:
+        (pred, tgt, g), _ = ssim_inputs(torch, (n, H, W), 0)
+        pixels = n * H * W
+        row = {}
+        for name, fn, nbytes in (
+                ("ssim_fused_fwd", lambda: sc.ssim_fused_fwd(pred, tgt), pixels * (12 + 12 + 4)),
+                ("ssim_fused_bwd", lambda: sc.ssim_fused_bwd(pred, tgt, g),
+                 pixels * (12 + 12 + 4 + 12))):
+            ms = time_ms(torch, fn)
+            b = bound(name, nbytes, pixels)
+            row[name] = {"ms": ms, "bound_ms": b[0], "bound_by": b[1], "bytes": nbytes,
+                         "gb_per_s": nbytes / ms / 1e6, "share_of_bound": b[0] / ms}
+            print(f"timing {name} kernel at N={n} {H}x{W}: {ms:.4f} ms, "
+                  f"{nbytes / ms / 1e6:.0f} GB/s, {b[0] / ms:.1%} of its {b[1]} bound "
+                  f"{b[0]:.4f} ms [{card}]")
+        by_n[n] = row
+        if n != SSIM_TIMED[0]:
+            del pred, tgt, g
+            continue
+        ms_fwd_plain = time_ms(torch, lambda: sc.ssim_fused_fwd_reference(pred, tgt), iters=5)
+        ms_bwd_plain = time_ms(torch, lambda: sc.ssim_fused_bwd_reference(pred, tgt, g), iters=5)
 
-    out_k = sc.ssim_fused_fwd(pred, tgt)
-    out_p = sc.ssim_fused_fwd_reference(pred, tgt)
-    gx_k = sc.ssim_fused_bwd(pred, tgt, g)
-    gx_p = sc.ssim_fused_bwd_reference(pred, tgt, g)
-    torch.cuda.synchronize()
-    check(out_k.shape == (N, H, W, 1) and gx_k.shape == (N, H, W, 3), "SSIM kernel shapes")
-    check(bool(torch.isfinite(out_k).all() and torch.isfinite(gx_k).all()), "SSIM non-finite")
-    fwd_err = float((out_k - out_p).abs().max())
-    bwd_err = float((gx_k - gx_p).abs().max())
-    bwd_rel = bwd_err / float(gx_p.abs().max())
-    check(fwd_err <= 1e-5, f"SSIM forward differs from its plain version by {fwd_err}")
-    check(bwd_rel <= 1e-4, f"SSIM backward differs from its plain version by {bwd_rel} (relative)")
-    # inside the tied block every window has q = 0 (inactive) and x = y
-    tied = float(gx_k[:, 2:46, 2:158].abs().max())
-    check(tied == 0.0, f"SSIM backward inside the tied block: {tied}, expected 0")
-    print(f"kernel check: ssim_fused_fwd max abs err {fwd_err:.3e}, ssim_fused_bwd max abs err "
-          f"{bwd_err:.3e} ({bwd_rel:.3e} of its largest value), tied block gradient 0, "
-          f"at N={N} {H}x{W}")
+        def fwd_bwd(fn):
+            def run():
+                p = pred.detach().requires_grad_(True)
+                (fn(p, tgt) * g).sum().backward()
+            return run
 
-    ms_fwd = time_ms(torch, lambda: sc.ssim_fused_fwd(pred, tgt))
-    ms_bwd = time_ms(torch, lambda: sc.ssim_fused_bwd(pred, tgt, g))
-    ms_fwd_plain = time_ms(torch, lambda: sc.ssim_fused_fwd_reference(pred, tgt), iters=5)
-    ms_bwd_plain = time_ms(torch, lambda: sc.ssim_fused_bwd_reference(pred, tgt, g), iters=5)
-
-    def fwd_bwd(fn):
-        def run():
-            p = pred.detach().requires_grad_(True)
-            (fn(p, tgt) * g).sum().backward()
-        return run
-
-    ms_fused_fb = time_ms(torch, fwd_bwd(sc.reprojection_loss_fused))
-    ms_xla = time_ms(torch, lambda: ts.reprojection_loss(pred, tgt), iters=5)
-    ms_xla_fb = time_ms(torch, fwd_bwd(ts.reprojection_loss), iters=5)
-    pixels = N * H * W
-    b_fwd = bound("ssim_fused_fwd", pixels * (12 + 12 + 4), pixels)
-    b_bwd = bound("ssim_fused_bwd", pixels * (12 + 12 + 4 + 12), pixels)
-    print(f"timing ssim_fused_fwd kernel: {ms_fwd:.4f} ms (bound {b_fwd[0]:.4f} ms, {b_fwd[1]}) "
-          f"plain {ms_fwd_plain:.4f} ms [{card}]")
-    print(f"timing ssim_fused_bwd kernel: {ms_bwd:.4f} ms (bound {b_bwd[0]:.4f} ms, {b_bwd[1]}) "
-          f"plain {ms_bwd_plain:.4f} ms [{card}]")
-    print(f"timing fused photometric loss fwd+bwd: {ms_fused_fb:.4f} ms; ops/ssim.py "
-          f"reprojection_loss fwd: {ms_xla:.4f} ms, fwd+bwd: {ms_xla_fb:.4f} ms [{card}]")
-    reason = "none: no single PyTorch call computes SSIM"
+        ms_fused_fb = time_ms(torch, fwd_bwd(sc.reprojection_loss_fused))
+        ms_xla = time_ms(torch, lambda: ts.reprojection_loss(pred, tgt), iters=5)
+        ms_xla_fb = time_ms(torch, fwd_bwd(ts.reprojection_loss), iters=5)
+        print(f"timing plain versions at N={n}: ssim_fused_fwd_reference {ms_fwd_plain:.4f} ms, "
+              f"ssim_fused_bwd_reference {ms_bwd_plain:.4f} ms [{card}]")
+        print(f"timing fused photometric loss fwd+bwd: {ms_fused_fb:.4f} ms; ops/ssim.py "
+              f"reprojection_loss fwd: {ms_xla:.4f} ms, fwd+bwd: {ms_xla_fb:.4f} ms [{card}]")
+        del pred, tgt, g
+    torch.cuda.empty_cache()
+    late_n, early_n = SSIM_TIMED
     common = {"xla_fwd_ms": ms_xla, "xla_fwd_bwd_ms": ms_xla_fb, "fused_fwd_bwd_ms": ms_fused_fb,
-              "library_call": reason}
-    return {
-        "ssim_fused_fwd": {"max_abs_err": fwd_err, "ms": ms_fwd, "plain_ms": ms_fwd_plain,
-                           "bound_ms": b_fwd[0], "bound_by": b_fwd[1], "library_ms": None,
-                           **common},
-        "ssim_fused_bwd": {"max_abs_err": bwd_err, "max_rel_err": bwd_rel, "ms": ms_bwd,
-                           "plain_ms": ms_bwd_plain, "bound_ms": b_bwd[0], "bound_by": b_bwd[1],
-                           "library_ms": None, **common},
-    }
+              "library_call": "none: no single PyTorch call computes SSIM",
+              "timed_shape": [late_n, H, W], "checks": checks}
+    stats = {}
+    for name, plain_ms in (("ssim_fused_fwd", ms_fwd_plain), ("ssim_fused_bwd", ms_bwd_plain)):
+        t_late, t_early = by_n[late_n][name], by_n[early_n][name]
+        stats[name] = {
+            "max_abs_err": 0.0 if name == "ssim_fused_fwd" else late["bwd_max_abs_err"],
+            "ms": t_late["ms"], "plain_ms": plain_ms, "bound_ms": t_late["bound_ms"],
+            "bound_by": t_late["bound_by"], "library_ms": None,
+            "share_of_bound": t_late["share_of_bound"], "gb_per_s": t_late["gb_per_s"],
+            f"ms_n{early_n}": t_early["ms"], f"bound_ms_n{early_n}": t_early["bound_ms"],
+            f"share_of_bound_n{early_n}": t_early["share_of_bound"], **common}
+        if name == "ssim_fused_bwd":
+            stats[name]["max_rel_err"] = late["bwd_max_rel_err"]
+    return stats
 
 
 def packed_phase(torch, card, k, inp):
