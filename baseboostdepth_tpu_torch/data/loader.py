@@ -1,18 +1,19 @@
 """Host-side training data loader: threaded decode/resize + prefetch, the
 counterpart of `baseboostdepth_tpu/data/loader.py`.
 
-A thread pool decodes and resizes with PIL (which releases the GIL during
-JPEG decode and LANCZOS resize) and a background thread keeps `prefetch`
-batches ready. The host does the minimum: decode, resize to the training
-resolution, stack uint8. Flip, color jitter, float conversion and the
-multi-scale pyramid run on the device inside the train step
-(data/augment.py, ops/resize.py), so the host->device transfer is one uint8
-frame stack per batch. Batches are byte-identical to the JAX loader's for
-the same seed: the same plan, drawn from the same numpy RNG stream, and the
-same PIL decode.
-
-The JAX package's native C++ JPEG decoder is not ported yet (ROADMAP.md,
-"Next slices"): `use_native` must be False.
+The native C++ batch decoder (native/bbd_loader.cpp: libjpeg + Lanczos3)
+decodes and resizes when it builds and the dataset is JPEG; otherwise a
+thread pool does it with PIL (which releases the GIL during JPEG decode and
+LANCZOS resize). A background thread keeps `prefetch` batches ready. The
+host does the minimum: decode, resize to the training resolution, stack
+uint8. Flip, color jitter, float conversion and the multi-scale pyramid run
+on the device inside the train step (data/augment.py, ops/resize.py), so the
+host->device transfer is one uint8 frame stack per batch. Batches are
+byte-identical to the JAX loader's for the same seed and the same
+`use_native` choice: the same plan, drawn from the same numpy RNG stream,
+and the same decoder (the two decoders differ from each other by 1 at some
+bytes). At their defaults (`use_native=None`) both loaders choose the same
+decoder wherever both native builds succeed.
 
 Per-sample contract (see training/batch.py): frames at offsets beyond the
 sample's curriculum window are replicated copies of frame 0.
@@ -31,6 +32,7 @@ from PIL import Image
 
 from baseboostdepth_tpu_torch.data import kitti
 from baseboostdepth_tpu_torch.data.curriculum import Stage, sample_f_max
+from baseboostdepth_tpu_torch.native import decode_resize_batch, native_available
 from baseboostdepth_tpu_torch.training.batch import make_batch, num_frames
 
 
@@ -64,7 +66,7 @@ class KittiTrainLoader:
         prefetch: int = 2,
         seed: int = 0,
         drop_last: bool = True,
-        use_native: Optional[bool] = False,
+        use_native: Optional[bool] = None,
         process_index: int = 0,
         process_count: int = 1,
         bucket_fs: Optional[Tuple[int, ...]] = None,
@@ -90,14 +92,10 @@ class KittiTrainLoader:
         mid-epoch resume sees exactly the batches an uninterrupted run would
         have seen next.
 
-        use_native: the JAX package's C++ JPEG decoder is not ported; None
-        or False decode with PIL, True raises.
+        use_native: decode with the native C++ batch decoder (True) or PIL
+        (False); None takes the native one when it builds and the index's
+        images are JPEG.
         """
-        if use_native:
-            raise NotImplementedError(
-                "the native C++ JPEG decoder is not ported yet (ROADMAP.md, 'Next slices'); "
-                "the port decodes with PIL: use_native=False"
-            )
         if batch_size % process_count != 0:
             raise ValueError(f"batch_size {batch_size} does not divide over {process_count} "
                              "processes")
@@ -124,6 +122,9 @@ class KittiTrainLoader:
         self.rng = np.random.default_rng(seed)
         self.drop_last = drop_last
         self.skip_batches = skip_batches
+        # the native decoder is JPEG-only: PNG datasets (--data.png) take PIL
+        jpeg = getattr(index, "img_ext", ".jpg") == ".jpg"
+        self.use_native = (native_available() and jpeg) if use_native is None else use_native
         self.F = stage.F
         self._K, _ = kitti.intrinsics(width, height)
 
@@ -186,8 +187,16 @@ class KittiTrainLoader:
 
     # ------------------------------------------------------------- decode
     def _decode(self, flat_paths: List[str]) -> List[np.ndarray]:
-        """Decode+resize a path list -> uint8 [H, W, 3] images on the PIL
-        thread pool."""
+        """Decode+resize a path list -> uint8 [H, W, 3] images (the native
+        batch decoder when use_native, the PIL thread pool otherwise)."""
+        if self.use_native:
+            decoded, ok = decode_resize_batch(
+                flat_paths, self.width, self.height, threads=self.num_workers
+            )
+            for pth, good in zip(flat_paths, ok):
+                if not good:
+                    raise FileNotFoundError(pth)
+            return list(decoded)
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             return list(
                 pool.map(lambda p: load_resized(p, self.width, self.height), flat_paths)

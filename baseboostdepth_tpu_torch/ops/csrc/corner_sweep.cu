@@ -8,79 +8,107 @@
 //
 // The TPU kernel sweeps (8-row band) x (128-column block) source tiles because
 // Mosaic cannot gather across (8 x 128) tiles. A GPU thread can load any
-// address, so none of that is carried over: one thread per output pixel.
-//
-// Edge padding without a padded copy: the TPU path edge-pads the packed source
-// by one row and column and reads x0 + 1 / y0 + 1 there. Coordinates arrive
-// clamped to [0, W-1] x [0, H-1], so reading at min(x0 + 1, W - 1) and
-// min(y0 + 1, H - 1) gives the same texels bit for bit. x0 and y0 are clamped
-// too, which changes nothing for clamped input and keeps every read in bounds
-// for any input.
-//
-// Packing: the kernel reads the uint8 [N, H, W, 3] frames directly and packs
-// each texel in registers, so no separate packing pass runs.
+// address, so none of that is carried over. Edge padding without a padded
+// copy: see rgb_texel.cuh::gather_corners. Packing: the kernel reads the uint8
+// [N, H, W, 3] frames directly and packs each texel in registers, so no
+// separate packing pass runs.
 //
 // Bound: bytes. Per output pixel 8 B of coordinates are read and 16 B of
-// corners written; each source texel is needed about once (3 B). Coordinate
-// loads and corner stores are coalesced across a warp; the twelve byte loads of
-// a pixel's texels hit L1/L2 lines that neighbouring threads share, since a
-// warp's 32 pixels sample neighbouring texels.
+// corners written; each source texel is needed about once (3 B). What held the
+// first version (one pixel a thread) back was the texel gather: twelve
+// single-byte loads a pixel, each an L1 request of its own, and on a rough grid
+// the 32 threads of a warp name about 32 cache lines a load. The design:
+//   - a 3-D grid over (128-column tiles, 8-row bands, images): n and i come
+//     from blockIdx, with no 64-bit division;
+//   - four adjacent output pixels a thread: one 16-byte load of px and of py,
+//     one 16-byte store per corner plane (scalar code for a width
+//     that is not a multiple of 4 or coordinates off 16-byte alignment);
+//   - each row's texel pair (x0, x0 + 1) from one or two aligned 8-byte loads
+//     (rgb_texel.cuh::load_rgb_pair): 3-4 loads a pixel instead of 12.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <limits.h>
 
 #include "rgb_texel.cuh"
 
 namespace {
 
-using bbd::load_rgb;
+using bbd::gather_corners;
 
-__global__ void corner_sweep_u8_kernel(const uint8_t* __restrict__ frames,
-                                       const float* __restrict__ px,
-                                       const float* __restrict__ py,
-                                       int32_t* __restrict__ out,
-                                       int64_t total, int H, int W, int64_t hw_out) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int64_t n = t / hw_out;
-  const int64_t r = t - n * hw_out;
+constexpr int kCols = 128;  // output columns of a block: 32 threads x 4
+constexpr int kRows = 8;    // output rows of a block
 
-  int x0 = (int)floorf(px[t]);
-  int y0 = (int)floorf(py[t]);
-  x0 = min(max(x0, 0), W - 1);
-  y0 = min(max(y0, 0), H - 1);
-  const int x1 = min(x0 + 1, W - 1);
-  const int y1 = min(y0 + 1, H - 1);
+template <bool kVec>
+__global__ void __launch_bounds__(32 * kRows)
+    corner_sweep_u8_kernel(const uint8_t* __restrict__ frames, const float* __restrict__ px,
+                           const float* __restrict__ py, int32_t* __restrict__ out, int H, int W,
+                           int Ho, int Wo, const uint8_t* __restrict__ frames_end) {
+  const int n = blockIdx.z;
+  const int i = blockIdx.y * kRows + threadIdx.y;
+  const int j = blockIdx.x * kCols + threadIdx.x * 4;
+  if (i >= Ho || j >= Wo) return;
+  const int count = min(4, Wo - j);
+  const int64_t plane = (int64_t)Ho * Wo;
+  const int64_t at = (int64_t)n * plane + (int64_t)i * Wo + j;
+  const uint8_t* img = frames + (int64_t)n * H * W * 3;
 
-  const uint8_t* img = frames + n * (int64_t)H * W * 3;
-  const int64_t row0 = (int64_t)y0 * W;
-  const int64_t row1 = (int64_t)y1 * W;
-  int32_t* o = out + n * 4 * hw_out + r;
-  o[0] = load_rgb(img, row0 + x0);
-  o[hw_out] = load_rgb(img, row0 + x1);
-  o[2 * hw_out] = load_rgb(img, row1 + x0);
-  o[3 * hw_out] = load_rgb(img, row1 + x1);
+  float fx[4], fy[4];
+  if (kVec) {
+    const float4 x4 = __ldg(reinterpret_cast<const float4*>(px + at));
+    const float4 y4 = __ldg(reinterpret_cast<const float4*>(py + at));
+    fx[0] = x4.x; fx[1] = x4.y; fx[2] = x4.z; fx[3] = x4.w;
+    fy[0] = y4.x; fy[1] = y4.y; fy[2] = y4.z; fy[3] = y4.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      fx[k] = k < count ? px[at + k] : 0.0f;
+      fy[k] = k < count ? py[at + k] : 0.0f;
+    }
+  }
+  int32_t c[4][4];  // [corner][pixel]
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (kVec || k < count)
+      gather_corners(img, fx[k], fy[k], H, W, frames, frames_end, c[0][k], c[1][k], c[2][k],
+                     c[3][k]);
+  }
+  int32_t* o = out + (int64_t)n * 3 * plane + at;  // out[n, 0, i, j]
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (kVec) {
+      *reinterpret_cast<int4*>(o + q * plane) = make_int4(c[q][0], c[q][1], c[q][2], c[q][3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (k < count) o[q * plane + k] = c[q][k];
+    }
+  }
 }
 
 }  // namespace
 
 // frames: uint8 [N, H, W, 3]; px, py: float32 [N, Ho, Wo]; out: int32
-// [N, 4, Ho, Wo]. All contiguous, on one device. Launches on `stream` and
-// returns the launch's cudaError_t (0 on success); does not synchronise.
+// [N, 4, Ho, Wo]. All contiguous, on one device; frames may start at any
+// byte. Launches on `stream` and returns the launch's cudaError_t (0 on
+// success); does not synchronise.
 extern "C" int bbd_corner_sweep_u8(const void* frames, const void* px, const void* py,
                                    void* out, long long N, int H, int W, int Ho, int Wo,
                                    void* stream) {
   if (!frames || !px || !py || !out || N < 0 || H <= 0 || W <= 0 || Ho < 0 || Wo < 0)
     return (int)cudaErrorInvalidValue;
-  const int64_t hw_out = (int64_t)Ho * Wo;
-  const int64_t total = (int64_t)N * hw_out;
-  if (total == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const int64_t blocks = (total + threads - 1) / threads;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  corner_sweep_u8_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)frames, (const float*)px, (const float*)py, (int32_t*)out,
-      total, H, W, hw_out);
+  if (N == 0 || Ho == 0 || Wo == 0) return (int)cudaSuccess;
+  if (N > 65535 || (Ho + kRows - 1) / kRows > 65535) return (int)cudaErrorInvalidConfiguration;
+  const auto* f = static_cast<const uint8_t*>(frames);
+  const auto* x = static_cast<const float*>(px);
+  const auto* y = static_cast<const float*>(py);
+  const bool vec = Wo % 4 == 0 && ((uintptr_t)px | (uintptr_t)py | (uintptr_t)out) % 16 == 0;
+  const dim3 grid((Wo + kCols - 1) / kCols, (Ho + kRows - 1) / kRows, (unsigned)N);
+  const dim3 block(32, kRows);
+  if (vec)
+    corner_sweep_u8_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        f, x, y, static_cast<int32_t*>(out), H, W, Ho, Wo, f + N * H * W * 3);
+  else
+    corner_sweep_u8_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        f, x, y, static_cast<int32_t*>(out), H, W, Ho, Wo, f + N * H * W * 3);
   return (int)cudaGetLastError();
 }

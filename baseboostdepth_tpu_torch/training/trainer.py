@@ -27,7 +27,7 @@ import json
 import os
 import signal
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +78,48 @@ def step_seed(seed: int, global_step: int) -> int:
     resumed run draws the same noise as an uninterrupted one."""
     ss = np.random.SeedSequence([seed % 2**64, global_step])
     return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def prefetch_to_device(batches: Iterable[Dict[str, np.ndarray]], device: torch.device
+                       ) -> Iterator[Tuple[Dict[str, np.ndarray], Dict[str, torch.Tensor]]]:
+    """Yield (host_batch, device_batch) for each batch of `batches`, with the
+    next batch's host-to-device copy in flight while the caller runs its step
+    on the current one (the JAX trainer's one-ahead device_put).
+
+    On a CUDA device each array is copied into pinned host memory and sent
+    with a non-blocking copy on a side stream; the current stream waits on
+    that copy's event before the batch is handed over, and each device
+    tensor is recorded on the current stream, so the allocator does not
+    reuse its memory before the step that reads it has run. The pinned
+    copies are held until the caller has enqueued that step. On the CPU the
+    batches pass through unchanged (host and device batch are the same)."""
+    if device.type != "cuda":
+        for batch in batches:
+            yield batch, batch
+        return
+    side = torch.cuda.Stream(device)
+    compute = torch.cuda.current_stream(device)
+
+    def send(host):
+        pinned = {k: torch.as_tensor(v).pin_memory() for k, v in host.items()}
+        with torch.cuda.stream(side):
+            moved = {k: t.to(device, non_blocking=True) for k, t in pinned.items()}
+        copied = torch.cuda.Event()
+        copied.record(side)
+        return host, pinned, moved, copied
+
+    it = iter(batches)
+    first = next(it, None)
+    pending = None if first is None else send(first)
+    while pending is not None:
+        host, pinned, moved, copied = pending
+        following = next(it, None)
+        pending = None if following is None else send(following)
+        compute.wait_event(copied)
+        for t in moved.values():
+            t.record_stream(compute)
+        yield host, moved
+        del pinned, moved  # the step that read them has been enqueued
 
 
 class MetricLogger:
@@ -265,11 +307,11 @@ class Trainer:
         t_epoch = time.time()
         seen = 0
         bi = skip - 1  # batch indices continue the pre-resume count
-        for batch in loader:
+        for host_batch, batch in prefetch_to_device(loader, self.device):
             bi += 1
             fn, st_b = step_fn, st
             if bucket_fs is not None:
-                F_c = (batch["frames"].shape[1] - 2) // 2
+                F_c = (host_batch["frames"].shape[1] - 2) // 2
                 if F_c != st.F:
                     st_b = dataclasses.replace(st, F=F_c)
                     fn = self._step_fn(st_b)
@@ -296,7 +338,7 @@ class Trainer:
                 print(f"e{epoch} b{bi} loss {m['loss']:.4f} | {rate:5.1f} imgs/s | "
                       f"elapsed {sec_to_hm_str(time.time() - t0)}")
                 if cfg.log.image_panels:
-                    self.save_image_panels(st_b, batch, seed, global_step)
+                    self.save_image_panels(st_b, host_batch, seed, global_step)
                 if self.gt_depths is not None:
                     self.validate(st, global_step, epoch, bi, quick=cfg.log.quick_val_size)
                 if cfg.log.syns_val:

@@ -19,7 +19,14 @@ In order, it
      whose data pointers are not 16-byte aligned, each with a region where
      prediction and target are tied; times both at N=84 and N=60; the packed
      warp's forward and backward kernels against theirs and against the
-     corner-plane warp at the shape of step 3;
+     corner-plane warp at the shape of step 3; then the three uint8 warp
+     kernels (corner sweep, packed forward and backward) against their
+     plain versions at ragged shapes (odd W, W=1, H=1, Ho/Wo other than
+     H/W), on frames 1-3 bytes and coordinates 4 bytes off 16-byte
+     alignment, with exact-border points, and timed on the white-noise grid
+     of step 3 and on the grids one late (N=156) and one early (N=108) step
+     hand to them, captured from the step's own forward pass, each beside
+     its bound from the distinct texels that grid names;
   5. holds the float-planes warp's forward and backward kernels against
      their plain versions on the same frames as float32 (/ 255) and grid,
      and on a small two-channel case; the forward against the packed warp,
@@ -46,7 +53,11 @@ In order, it
      test and val), and runs the training entry point (cli.train): one
      epoch at the default configuration, ending in a checkpoint, then again
      with two epochs, which must resume from it, then a third epoch with
-     SYNS validation and image panels on;
+     SYNS validation and image panels on; prints which JPEG decoder the
+     loader took (the native one where g++ and libjpeg build it, else PIL),
+     times the loader alone with each decoder available, and holds every
+     batch of an epoch that the trainer's device prefetcher sends to the
+     card against its host batch byte for byte;
  10. runs the evaluation and inference entry points on that checkpoint:
      cli.evaluate_depth (eigen mono with --save_pred_disps, then
      --ext_disp_to_eval on the saved stack, which must reproduce it
@@ -93,10 +104,10 @@ FUSED = dict(photo_impl="fused", warp_impl="pallas")
 # separable adjoint (3 + 3 weighted three-tap sums, as FMAs), 10 for the
 # final combination. Packed warp: per channel 16 to unpack four texels and
 # 9 to blend (forward) or 14 for the two coordinate derivatives and their
-# sums (backward), plus 4 for the weights.
+# sums (backward), plus 4 for the weights. Corner sweep: the two floors.
 # Float-planes warp: per channel 9 to blend (forward) or 14 (backward), plus
 # 4 for the weights.
-OPS_PER_PIXEL = {"ssim_fused_fwd": 3 * 65, "ssim_fused_bwd": 3 * 110,
+OPS_PER_PIXEL = {"corner_sweep": 2, "ssim_fused_fwd": 3 * 65, "ssim_fused_bwd": 3 * 110,
                  "warp_packed_fwd": 3 * 25 + 4, "warp_packed_bwd": 3 * 30 + 4,
                  "warp_planes_fwd": 3 * 9 + 4, "warp_planes_bwd": 3 * 14 + 4}
 
@@ -231,8 +242,7 @@ def kernel_phase(torch, card):
     print(f"kernel check: blend max abs err {blend_err:.3e}, grid grad max err {grad_err:.3e} "
           "relative to its largest value")
 
-    # timings at the main path's shape
-    ms_kernel = time_ms(torch, lambda: wc.corner_sweep(frames, x, y))
+    # timings at the main path's shape (the kernel's own: warp_grid_phase)
     ms_plain = time_ms(torch, lambda: wc.corner_sweep_reference(frames, x, y))
 
     def corner_fwd_bwd():
@@ -261,16 +271,12 @@ def kernel_phase(torch, card):
     ms_gs_fb = time_ms(torch, grid_sample_fwd_bwd)
     ms_gs_bwd = time_ms(torch, grid_sample_grid_grad)
     del frames_f
-    bytes_moved = N * H * W * 3 + N * H * W * 8 + N * 4 * H * W * 4
-    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    print(f"timing corner_sweep kernel: {ms_kernel:.4f} ms (bound {bound_ms:.4f} ms, "
-          f"{bytes_moved / 1e9:.3f} GB) plain {ms_plain:.4f} ms [{card}]")
+    print(f"timing corner_sweep plain version: {ms_plain:.4f} ms [{card}]")
     print(f"timing corner warp fwd+bwd (kernel + blend + autodiff): {ms_corner_fb:.4f} ms [{card}]")
     print(f"timing F.grid_sample fwd: {ms_gs:.4f} ms, fwd+bwd: {ms_gs_fb:.4f} ms, "
           f"grid gradient alone (grid_sampler_2d_backward): {ms_gs_bwd:.4f} ms [{card}]")
     stats = {
-        "max_abs_err": max_err, "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": bound_ms,
-        "bound_by": "bytes", "library_ms": ms_gs,
+        "max_abs_err": max_err, "plain_ms": ms_plain, "library_ms": ms_gs,
         "library_call": "F.grid_sample(bilinear, border, align_corners=True) forward, float32 "
                         "frames, same grid (the blended warp, not the corner planes)",
         "blend_max_abs_err": blend_err, "grid_grad_max_rel_err": grad_err,
@@ -450,7 +456,8 @@ def packed_phase(torch, card, k, inp):
     bwd_err = max(float((gpx_k - gpx_p).abs().max()), float((gpy_k - gpy_p).abs().max()))
     bwd_rel = max(float((gpx_k - gpx_p).abs().max() / gpx_p.abs().max()),
                   float((gpy_k - gpy_p).abs().max() / gpy_p.abs().max()))
-    check(fwd_err <= 1e-6, f"packed warp forward differs from its plain version by {fwd_err}")
+    check(torch.equal(out_k, out_p), f"packed warp forward differs from its plain version by "
+                                     f"{fwd_err}")
     check(corner_err <= 1e-6, f"packed warp differs from the corner-plane warp by {corner_err}")
     check(bwd_rel <= 1e-6, f"packed warp backward differs from its plain version by {bwd_rel}")
 
@@ -466,8 +473,6 @@ def packed_phase(torch, card, k, inp):
           f"largest value), grid gradient vs corner-plane warp {grid_rel:.3e} relative, "
           f"at N={N} {H}x{W}")
 
-    ms_fwd = time_ms(torch, lambda: wc.warp_packed_fwd(frames, x, y))
-    ms_bwd = time_ms(torch, lambda: wc.warp_packed_bwd(frames, x, y, ct))
     ms_fwd_plain = time_ms(torch, lambda: wc.warp_packed_fwd_reference(frames, x, y), iters=5)
     ms_bwd_plain = time_ms(torch, lambda: wc.warp_packed_bwd_reference(frames, x, y, ct),
                            iters=5)
@@ -477,34 +482,234 @@ def packed_phase(torch, card, k, inp):
         (wc.bilinear_sample_packed_u8(frames, g) * ct).sum().backward()
 
     ms_fb = time_ms(torch, packed_fwd_bwd)
-    pixels = N * H * W
-    texels = frames.numel()
-    b_fwd = bound("warp_packed_fwd", texels + pixels * (8 + 12), pixels)
-    b_bwd = bound("warp_packed_bwd", texels + pixels * (8 + 12 + 8), pixels)
-    print(f"timing warp_packed_fwd kernel: {ms_fwd:.4f} ms (bound {b_fwd[0]:.4f} ms, "
-          f"{b_fwd[1]}) plain {ms_fwd_plain:.4f} ms [{card}]")
-    print(f"timing warp_packed_bwd kernel: {ms_bwd:.4f} ms (bound {b_bwd[0]:.4f} ms, "
-          f"{b_bwd[1]}) plain {ms_bwd_plain:.4f} ms [{card}]")
+    print(f"timing plain versions: warp_packed_fwd_reference {ms_fwd_plain:.4f} ms, "
+          f"warp_packed_bwd_reference {ms_bwd_plain:.4f} ms [{card}]")
     print(f"timing packed warp fwd+bwd (two kernels + clip): {ms_fb:.4f} ms; corner warp "
           f"fwd+bwd {k['corner_fwd_bwd_ms']:.4f} ms [{card}]")
     common = {"packed_fwd_bwd_ms": ms_fb, "corner_fwd_bwd_ms": k["corner_fwd_bwd_ms"],
               "grid_grad_vs_corner_max_rel_err": grid_rel}
     return {
         "warp_packed_fwd": {
-            "max_abs_err": fwd_err, "corner_max_abs_err": corner_err, "ms": ms_fwd,
-            "plain_ms": ms_fwd_plain, "bound_ms": b_fwd[0], "bound_by": b_fwd[1],
-            "library_ms": k["library_ms"],
+            "max_abs_err": fwd_err, "corner_max_abs_err": corner_err,
+            "plain_ms": ms_fwd_plain, "library_ms": k["library_ms"],
             "library_call": "F.grid_sample(bilinear, border, align_corners=True) forward, "
                             "float32 frames, same grid", **common},
         "warp_packed_bwd": {
-            "max_abs_err": bwd_err, "max_rel_err": bwd_rel, "ms": ms_bwd,
-            "plain_ms": ms_bwd_plain, "bound_ms": b_bwd[0], "bound_by": b_bwd[1],
-            "library_ms": k["grid_sample_grid_grad_ms"],
+            "max_abs_err": bwd_err, "max_rel_err": bwd_rel,
+            "plain_ms": ms_bwd_plain, "library_ms": k["grid_sample_grid_grad_ms"],
             "library_call": "aten.grid_sampler_2d_backward(bilinear, border, "
                             "align_corners=True, output_mask=[False, True]): the grid "
                             "gradient alone, float32 frames, same grid and cotangent",
             "grid_sample_fwd_bwd_ms": k["grid_sample_fwd_bwd_ms"], **common},
     }
+
+
+# uint8 warp checks off the main path's shape: (N, H, W, Ho, Wo, byte offset
+# of the frames, float offset of px and py) -- odd W, W = 1, H = 1, Ho / Wo
+# other than H / W, frames 1-3 bytes off 16-byte alignment (one at the full
+# width), coordinates 4 bytes off it
+WARP_U8_CASES = ((3, 17, 29, 17, 29, 0, 0), (2, 9, 1, 9, 1, 0, 0), (2, 1, 37, 1, 37, 0, 0),
+                 (3, 20, 33, 11, 50, 0, 0), (4, 48, 160, 48, 160, 1, 0),
+                 (2, 31, 63, 33, 61, 2, 0), (2, H, W, H, W, 3, 0), (3, 30, 64, 30, 64, 0, 1),
+                 (2, 25, 40, 26, 43, 1, 1))
+
+
+def warp_u8_inputs(torch, case, seed):
+    """Frames, clamped coordinates and a cotangent for one WARP_U8_CASES
+    entry: coordinates spread 10% past each border and clamped into the
+    image, some exactly on the borders, some on whole texels; each tensor a
+    contiguous view `offset` elements into a buffer of its own."""
+    n, h, w, ho, wo, f_off, c_off = case
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def placed(x, offset):
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+        return buf[offset:].view(x.shape).copy_(x)
+
+    frames = torch.randint(0, 256, (n, h, w, 3), dtype=torch.uint8, device=dev, generator=gen)
+    coords = []
+    for size in (w, h):
+        c = (torch.rand((n, ho, wo), device=dev, generator=gen) * 1.2 - 0.1) * (size - 1)
+        pick = torch.rand((n, ho, wo), device=dev, generator=gen)
+        c = torch.where(pick < 0.05, 0.0, torch.where(pick > 0.95, float(size - 1), c))
+        c = torch.where((pick > 0.45) & (pick < 0.5), torch.floor(c), c)
+        coords.append(c.clamp(0.0, size - 1))
+    ct = torch.rand((n, ho, wo, 3), device=dev, generator=gen)
+    return placed(frames, f_off), placed(coords[0], c_off), placed(coords[1], c_off), ct
+
+
+def warp_u8_checks(torch):
+    """corner_sweep, warp_packed_fwd and warp_packed_bwd against their plain
+    versions at WARP_U8_CASES: corner planes and the forward exactly equal,
+    the backward within 1e-6 of its largest entry."""
+    from baseboostdepth_tpu_torch.ops import warp_cuda as wc
+
+    results = []
+    for seed, case in enumerate(WARP_U8_CASES):
+        frames, x, y, ct = warp_u8_inputs(torch, case, seed)
+        n, h, w, ho, wo, f_off, c_off = case
+        label = f"frames {(n, h, w)} -> {(ho, wo)}" + (
+            f", frames {f_off} B and coordinates {4 * c_off} B off 16-byte alignment"
+            if f_off or c_off else "")
+        check(frames.data_ptr() % 16 == f_off and x.data_ptr() % 16 == 4 * c_off
+              and y.data_ptr() % 16 == 4 * c_off, f"{label}: alignment of the inputs")
+        check(bool((x == 0).any() and (x == w - 1).any() and (y == 0).any()
+                   and (y == h - 1).any()), f"{label}: no exact-border points")
+        c_k, c_p = wc.corner_sweep(frames, x, y), wc.corner_sweep_reference(frames, x, y)
+        f_k, f_p = wc.warp_packed_fwd(frames, x, y), wc.warp_packed_fwd_reference(frames, x, y)
+        b_k = wc.warp_packed_bwd(frames, x, y, ct)
+        b_p = wc.warp_packed_bwd_reference(frames, x, y, ct)
+        torch.cuda.synchronize()
+        check(torch.equal(c_k, c_p), f"{label}: corner planes differ from the plain version")
+        fwd_err = float((f_k - f_p).abs().max())
+        check(torch.equal(f_k, f_p), f"{label}: warp_packed_fwd differs from its plain version "
+                                     f"by {fwd_err}")
+        bwd_rel = 0.0
+        for k, p in zip(b_k, b_p):
+            err = float((k - p).abs().max())
+            scale = float(p.abs().max())
+            check(err <= 1e-6 * scale, f"{label}: warp_packed_bwd differs from its plain "
+                                       f"version by {err} (largest entry {scale})")
+            bwd_rel = max(bwd_rel, err / scale if scale else 0.0)
+        results.append({"case": list(case), "corner_equal": True, "fwd_equal": True,
+                        "bwd_max_rel_err": bwd_rel})
+        print(f"kernel check: corner_sweep and warp_packed_fwd equal to their plain versions, "
+              f"warp_packed_bwd within {bwd_rel:.3e} of its largest entry, at {label}")
+    return results
+
+
+def capture_step_grids(torch):
+    """The frames and clamped coordinates that loss_forward hands to the
+    uint8 warp kernels at scale 0, in one late step (N = 156: F=7, tri-min,
+    incremental + partial + decomp, the error-induced poses at pose_error
+    5.5 merged with the main slots, stereo) and one early step (N = 108),
+    at full width, from the step phases' own batches and initial weights
+    (realistic_pose_bias_ poses). A recording wrapper stands in for
+    ops/warp_cuda.py's corner_sweep during one forward pass; the packed warp
+    (warp_impl="pallas") is handed the same coordinates."""
+    from baseboostdepth_tpu_torch.models.pose import realistic_pose_bias_
+    from baseboostdepth_tpu_torch.ops import warp_cuda as wc
+    from baseboostdepth_tpu_torch.training.batch import synthetic_batch
+    from baseboostdepth_tpu_torch.training.step import init_state, loss_forward, main_path_static
+
+    real = wc.corner_sweep
+    grids = {}
+    for stage, n in (("late_F7", B * 13), ("early_F2", B * 9)):
+        st = main_path_static(stage)
+        state = init_state(st, seed=0, device="cuda", steps_per_epoch=3317)
+        realistic_pose_bias_(state.pose_net)
+        batch = {k: torch.as_tensor(v).to("cuda")
+                 for k, v in synthetic_batch(st.F, B, st.height, st.width, seed=st.F).items()}
+        calls = []
+
+        def recording(frames, px, py):
+            if not calls:
+                calls.append({"frames": frames.clone(), "x": px.clone(), "y": py.clone()})
+            return real(frames, px, py)
+
+        # the wrapper counts its launch on the module's name, the recorder
+        recording.launches = 0
+        wc.corner_sweep = recording
+        try:
+            with torch.no_grad():
+                loss_forward(state.depth_net, state.pose_net, batch, st,
+                             generator=torch.Generator(device="cuda").manual_seed(1))
+        finally:
+            wc.corner_sweep = real
+        grid = calls[0]
+        check(grid["frames"].shape == (n, H, W, 3) and grid["x"].shape == (n, H, W),
+              f"{stage}: captured warp of {tuple(grid['frames'].shape)}")
+        grids[stage] = grid
+        del state, batch, calls
+    torch.cuda.empty_cache()
+    return grids
+
+
+def distinct_texels(torch, frames, x, y) -> int:
+    """The number of distinct source texels the four bilinear corners of
+    the clamped coordinates x, y name."""
+    N, h, w, _ = frames.shape
+    x0 = torch.floor(x).long().clamp(0, w - 1)
+    y0 = torch.floor(y).long().clamp(0, h - 1)
+    x1 = (x0 + 1).clamp(max=w - 1)
+    y1 = (y0 + 1).clamp(max=h - 1)
+    base = torch.arange(N, device=x.device).view(N, 1, 1) * (h * w)
+    named = torch.zeros(N * h * w, dtype=torch.bool, device=x.device)
+    for yy in (y0, y1):
+        for xx in (x0, x1):
+            named[(base + yy * w + xx).flatten()] = True
+    return int(named.sum())
+
+
+def warp_grid_phase(torch, card, grids):
+    """corner_sweep, warp_packed_fwd and warp_packed_bwd on each grid (the
+    white-noise grid of kernel_phase, the captured late and early step
+    grids): held against their plain versions (corner planes and forward
+    exactly, backward to 1e-6 of its largest entry), then timed. Each
+    bound counts the distinct source texels the grid names (3 B each), the
+    coordinates (8 B a pixel) and the outputs (corner 16 B, forward 12 B;
+    backward reads a 12 B cotangent and writes 8 B)."""
+    from baseboostdepth_tpu_torch.ops import warp_cuda as wc
+
+    out = {}
+    for label, g in grids.items():
+        frames, x, y = g["frames"], g["x"], g["y"]
+        N, ho, wo = x.shape
+        ct = torch.rand((N, ho, wo, 3), device=x.device,
+                        generator=torch.Generator(device=x.device).manual_seed(9))
+        check(torch.equal(wc.corner_sweep(frames, x, y), wc.corner_sweep_reference(frames, x, y)),
+              f"{label} grid: corner planes differ from the plain version")
+        check(torch.equal(wc.warp_packed_fwd(frames, x, y),
+                          wc.warp_packed_fwd_reference(frames, x, y)),
+              f"{label} grid: warp_packed_fwd differs from its plain version")
+        for k, p in zip(wc.warp_packed_bwd(frames, x, y, ct),
+                        wc.warp_packed_bwd_reference(frames, x, y, ct)):
+            rel = float((k - p).abs().max() / p.abs().max())
+            check(rel <= 1e-6, f"{label} grid: warp_packed_bwd differs from its plain version "
+                               f"by {rel} (relative)")
+        texels = distinct_texels(torch, frames, x, y)
+        pixels = N * ho * wo
+        row = {"n": N, "distinct_texels": texels}
+        for name, fn, per_pixel in (
+                ("corner_sweep", lambda: wc.corner_sweep(frames, x, y), 8 + 16),
+                ("warp_packed_fwd", lambda: wc.warp_packed_fwd(frames, x, y), 8 + 12),
+                ("warp_packed_bwd", lambda: wc.warp_packed_bwd(frames, x, y, ct), 8 + 12 + 8)):
+            nbytes = 3 * texels + pixels * per_pixel
+            ms = time_ms(torch, fn)
+            b = bound(name, nbytes, pixels)
+            row[name] = {"ms": ms, "bound_ms": b[0], "bound_by": b[1],
+                         "share_of_bound": b[0] / ms}
+            print(f"timing {name} kernel on the {label} grid (N={N} {ho}x{wo}, {texels} "
+                  f"distinct texels): {ms:.4f} ms, {b[0] / ms:.1%} of its {b[1]} bound "
+                  f"{b[0]:.4f} ms [{card}]")
+        out[label] = row
+        del ct
+    torch.cuda.empty_cache()
+    return out
+
+
+def uint8_warp_phase(torch, card, noise, stats):
+    """The uint8 warp kernels off the main path's shape (warp_u8_checks),
+    then on the white-noise grid `noise` and the captured step grids
+    (warp_grid_phase); each kernel's entry in `stats` takes its times and
+    bounds: `ms` and `bound_ms` on the noise grid, as before, beside
+    `noise_grid_*`, `step_grid_*` (the late step, N = 156) and
+    `step_grid_early_*` (N = 108); the checks go with corner_sweep's."""
+    checks = warp_u8_checks(torch)
+    by_grid = warp_grid_phase(torch, card, {"noise": noise, **capture_step_grids(torch)})
+    for name in ("corner_sweep", "warp_packed_fwd", "warp_packed_bwd"):
+        on = {label: row[name] for label, row in by_grid.items()}
+        stats[name].update(
+            ms=on["noise"]["ms"], bound_ms=on["noise"]["bound_ms"],
+            bound_by=on["noise"]["bound_by"], noise_grid_ms=on["noise"]["ms"],
+            noise_grid_bound_ms=on["noise"]["bound_ms"], step_grid_ms=on["late_F7"]["ms"],
+            step_grid_bound_ms=on["late_F7"]["bound_ms"],
+            step_grid_early_ms=on["early_F2"]["ms"],
+            step_grid_early_bound_ms=on["early_F2"]["bound_ms"],
+            distinct_texels={label: row["distinct_texels"] for label, row in by_grid.items()})
+    stats["corner_sweep"]["uint8_warp_checks"] = checks
+    return by_grid
 
 
 def planes_phase(torch, card, k, inp):
@@ -986,6 +1191,8 @@ def trainer_phase(torch, card, step_ms, root):
     from baseboostdepth_tpu_torch.cli import train as cli
     from baseboostdepth_tpu_torch.data.curriculum import stage_for_epoch
     from baseboostdepth_tpu_torch.data.loader import KittiTrainLoader
+    from baseboostdepth_tpu_torch.native import native_available
+    from baseboostdepth_tpu_torch.training.trainer import prefetch_to_device
 
     argv = ["--data.kt_path", os.path.join(root, "raw"),
             "--data.splits_dir", os.path.join(root, "splits"),
@@ -1034,16 +1241,33 @@ def trainer_phase(torch, card, step_ms, root):
     ckpts = tr2.ckpt.all_steps()
     check(ckpts == [steps1, steps], f"trainer: checkpoints {ckpts}")
 
-    # the loader alone over epoch 1's batches: its share of the epoch
+    # the loader alone over epoch 1's batches (its share of the epoch), with
+    # each decoder this machine builds; then the device prefetcher over the
+    # same epoch, each device batch against its host batch byte for byte
     cfg = tr2.cfg
-    t0 = time.perf_counter()
-    n_loaded = sum(1 for _ in KittiTrainLoader(
-        tr2.train_index, stage_for_epoch(1, cfg.method.trimin), cfg.optim.batch_size,
-        cfg.data.height, cfg.data.width, trimin=cfg.method.trimin,
-        num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch,
-        seed=cfg.seed * 1000 + 1))
-    loader_s = time.perf_counter() - t0
-    check(n_loaded == steps1, f"trainer: the loader gave {n_loaded} batches")
+
+    def epoch1_loader(use_native=None):
+        return KittiTrainLoader(
+            tr2.train_index, stage_for_epoch(1, cfg.method.trimin), cfg.optim.batch_size,
+            cfg.data.height, cfg.data.width, trimin=cfg.method.trimin,
+            num_workers=cfg.data.num_workers, prefetch=cfg.data.prefetch,
+            seed=cfg.seed * 1000 + 1, use_native=use_native)
+
+    decoder = "native" if epoch1_loader().use_native else "PIL"
+    loader_s = {}
+    for name in (("native", "PIL") if native_available() else ("PIL",)):
+        t0 = time.perf_counter()
+        n_loaded = sum(1 for _ in epoch1_loader(name == "native"))
+        loader_s[name] = time.perf_counter() - t0
+        check(n_loaded == steps1, f"trainer: the {name} loader gave {n_loaded} batches")
+    n_prefetched = 0
+    for host, dev in prefetch_to_device(epoch1_loader(), torch.device("cuda")):
+        check(host.keys() == dev.keys() and all(
+            dev[k].is_cuda and torch.equal(dev[k].cpu(), torch.as_tensor(v))
+            for k, v in host.items()), f"trainer: prefetched batch {n_prefetched} differs from "
+                                       "its host batch")
+        n_prefetched += 1
+    check(n_prefetched == steps1, f"trainer: the prefetcher gave {n_prefetched} batches")
     del tr2
 
     # epoch 2 with SYNS validation and image panels at batch 2
@@ -1075,16 +1299,23 @@ def trainer_phase(torch, card, step_ms, root):
           f"{steps1}, then epoch 2 with SYNS validation and panels), {3 * steps1} steps, "
           f"launches {launches['corner_sweep'] + launches3['corner_sweep']} corner_sweep; "
           f"syns-val {json.dumps(syns_metrics)}; panel {panels[0]}")
+    loader_rates = {name: steps1 * B / sec for name, sec in loader_s.items()}
+    print(f"trainer: decoder {decoder} (native decoder available: {native_available()}); "
+          f"{n_prefetched} prefetched device batches equal to their host batches byte for byte")
     print(f"timing trainer: logged imgs/s (wall clock since the epoch's start, loader "
           f"included) {[round(r, 2) for r in logged_rate]}; run 1 {wall1:.2f} s "
           f"(networks' init, {steps1} steps, checkpoint), run 2 train() {wall2:.2f} s "
           f"({epoch_rate:.2f} imgs/s over the epoch); the loader alone over that epoch "
-          f"{loader_s:.2f} s ({steps1 * B / loader_s:.2f} imgs/s); the step alone (early_F2 "
-          f"phase) {step_ms:.2f} ms/step = {B / step_ms * 1e3:.2f} imgs/s; run 3 train() "
-          f"with a panel and SYNS validation {wall3:.2f} s [{card}]")
+          + ", ".join(f"{name} {loader_s[name]:.2f} s ({rate:.2f} imgs/s)"
+                      for name, rate in loader_rates.items())
+          + f"; the step alone (early_F2 phase) {step_ms:.2f} ms/step = "
+          f"{B / step_ms * 1e3:.2f} imgs/s; run 3 train() with a panel and SYNS validation "
+          f"{wall3:.2f} s [{card}]")
     return {"launches": {n: launches[n] + launches3[n] for n in KERNELS},
             "logged_imgs_per_s": logged_rate, "epoch_imgs_per_s": epoch_rate, "run1_s": wall1,
-            "run2_train_s": wall2, "run3_syns_val_panels_s": wall3, "loader_epoch_s": loader_s}
+            "run2_train_s": wall2, "run3_syns_val_panels_s": wall3, "decoder": decoder,
+            "loader_epoch_s": loader_s, "loader_imgs_per_s": loader_rates,
+            "prefetched_batches_equal": n_prefetched}
 
 
 def finite_metrics(what, result: dict) -> dict:
@@ -1260,6 +1491,7 @@ def main() -> int:
     stats = {"corner_sweep": corner, **ssim_phase(torch, card),
              **packed_phase(torch, card, corner, inputs),
              **planes_phase(torch, card, corner, inputs)}
+    uint8_warp_phase(torch, card, inputs, stats)
     del inputs
     torch.cuda.empty_cache()
     probe_run, probe_stats = probe_phase(torch, card)

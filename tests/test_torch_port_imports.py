@@ -46,6 +46,7 @@ def test_every_port_module_was_imported(probe):
                  "baseboostdepth_tpu_torch.training.trainer",
                  "baseboostdepth_tpu_torch.training.checkpoint",
                  "baseboostdepth_tpu_torch.data.loader", "baseboostdepth_tpu_torch.data.curriculum",
+                 "baseboostdepth_tpu_torch.native", "baseboostdepth_tpu_torch.native.loader",
                  "baseboostdepth_tpu_torch.data.kitti", "baseboostdepth_tpu_torch.data.kitti_utils",
                  "baseboostdepth_tpu_torch.evaluation.metrics",
                  "baseboostdepth_tpu_torch.utils.misc", "baseboostdepth_tpu_torch.cli.train",

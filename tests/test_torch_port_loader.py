@@ -3,8 +3,10 @@
 utilities) against the JAX package's, on a tiny JPEG tree.
 
 Batches must be byte-identical (same plan from the same numpy RNG stream,
-same PIL decode); curriculum draws and indices equal; metrics to 1e-6
-relative (the same numpy expressions, so in practice equal).
+same decoder: PIL with use_native=False on both sides, each package's
+default otherwise); curriculum draws and indices equal; metrics to 1e-6
+relative (the same numpy expressions, so in practice equal). The native
+decoders are held against each other in test_torch_port_native_loader.py.
 """
 
 import os
@@ -72,25 +74,35 @@ CASES = {
     "bucketed_skip": dict(epoch=12, batch_size=3, bucket_fs=(2, 5, 7), skip_batches=1),
     "classic": dict(epoch=0, batch_size=4, classic=True, trimin=False),
     "process_slice": dict(epoch=3, batch_size=4, process_index=1, process_count=2),
+    "defaults": dict(epoch=0, batch_size=4, use_native=None),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_batches_byte_identical_to_jax_loader(tree, case):
+    """PIL on both sides (use_native=False), or both packages at their
+    default decoder choice (use_native not passed: the native decoder
+    wherever it builds, PIL elsewhere)."""
     kw = dict(CASES[case])
     epoch = kw.pop("epoch")
     trimin = kw.pop("trimin", True)
+    if kw.pop("use_native", False) is not None:
+        kw["use_native"] = False
     jidx, tidx = _indices(tree)
     common = dict(height=32, width=64, trimin=trimin, num_workers=2, seed=7 + epoch, **kw)
-    jb = list(jloader.KittiTrainLoader(jidx, jcur.stage_for_epoch(epoch, trimin),
-                                       use_native=False, **common))
-    tb = list(tloader.KittiTrainLoader(tidx, tcur.stage_for_epoch(epoch, trimin), **common))
+    jl = jloader.KittiTrainLoader(jidx, jcur.stage_for_epoch(epoch, trimin), **common)
+    tl = tloader.KittiTrainLoader(tidx, tcur.stage_for_epoch(epoch, trimin), **common)
+    assert jl.use_native == tl.use_native
+    jb, tb = list(jl), list(tl)
     _assert_batches_equal(jb, tb)
     if "bucket_fs" in kw:  # the classes really mix
         assert len({b["frames"].shape[1] for b in tb}) > 1
 
 
 def test_eval_loader_and_native_decoder_refused(tree):
+    """EvalLoader (PIL in both packages) and load_resized are equal; the
+    port's training loader no longer refuses a decoder: use_native=False on
+    both sides decodes with PIL and gives equal batches."""
     data, _ = tree
     paths = [os.path.join(data, FOLDER, "image_02", "data", f"{i:010d}.jpg") for i in range(5)]
     jb = list(jloader.EvalLoader(paths, 32, 64, batch_size=2, num_workers=2))
@@ -101,10 +113,13 @@ def test_eval_loader_and_native_decoder_refused(tree):
         assert (js, jn) == (ts, tn)
     np.testing.assert_array_equal(jloader.load_resized(paths[0], 64, 32),
                                   tloader.load_resized(paths[0], 64, 32))
-    _, tidx = _indices(tree)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloader.KittiTrainLoader(tidx, tcur.stage_for_epoch(0, True), 4, 32, 64, trimin=True,
-                                 use_native=True)
+    jidx, tidx = _indices(tree)
+    common = dict(batch_size=4, height=32, width=64, trimin=True, num_workers=2, seed=2,
+                  use_native=False)
+    jl = jloader.KittiTrainLoader(jidx, jcur.stage_for_epoch(0, True), **common)
+    tl = tloader.KittiTrainLoader(tidx, tcur.stage_for_epoch(0, True), **common)
+    assert jl.use_native is False and tl.use_native is False
+    _assert_batches_equal(list(jl), list(tl))
 
 
 def test_curriculum_equal():

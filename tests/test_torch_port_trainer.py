@@ -17,7 +17,8 @@ from baseboostdepth_tpu_torch.config import Config
 from baseboostdepth_tpu_torch.data.curriculum import stage_for_epoch
 from baseboostdepth_tpu_torch.data.loader import KittiTrainLoader
 from baseboostdepth_tpu_torch.training.checkpoint import CheckpointManager
-from baseboostdepth_tpu_torch.training.trainer import Trainer, step_seed
+from baseboostdepth_tpu_torch.training import trainer as trainer_mod
+from baseboostdepth_tpu_torch.training.trainer import Trainer, prefetch_to_device, step_seed
 
 FOLDER = "2011_09_26/2011_09_26_drive_0001_sync"
 
@@ -227,6 +228,64 @@ def test_static_for_stage_matches_jax(tiny_kitti):
             jst = jtr._static_for_stage(jax_stage_for_epoch(epoch, True))
             for f in dataclasses.fields(tst):
                 assert getattr(tst, f.name) == getattr(jst, f.name), (curriculum, epoch, f.name)
+
+
+def test_prefetch_to_device_passes_batches_through_on_the_cpu(tiny_kitti):
+    """On the CPU the prefetcher hands each loader batch over unchanged and
+    in order, as (host, device) = (batch, batch); the ragged last batch of a
+    loader without drop_last is kept; a loader's exception reaches the
+    caller at the batch where it was raised."""
+    data, splits, _ = tiny_kitti
+    from baseboostdepth_tpu_torch.data.kitti import KittiRawIndex
+
+    index = KittiRawIndex(data, os.path.join(splits, "eigen_zhou", "train_files_baselines.txt"))
+
+    def loader():
+        return KittiTrainLoader(index, stage_for_epoch(0, True), 3, 32, 64, trimin=True,
+                                num_workers=2, seed=4, drop_last=False, use_native=False)
+
+    expected = list(loader())
+    got = list(prefetch_to_device(loader(), torch.device("cpu")))
+    assert [b["frames"].shape[0] for b in expected] == [3, 3, 2]
+    assert len(got) == len(expected)
+    for want, (host, dev) in zip(expected, got):
+        assert host is dev and sorted(host) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(host[k], want[k], err_msg=k)
+
+    def failing():
+        yield expected[0]
+        raise FileNotFoundError("missing frame")
+
+    it = prefetch_to_device(failing(), torch.device("cpu"))
+    assert next(it)[0] is expected[0]
+    with pytest.raises(FileNotFoundError, match="missing frame"):
+        next(it)
+
+
+def test_trainer_epoch_identical_without_the_prefetcher(tiny_kitti, monkeypatch):
+    """One CPU epoch of two steps through prefetch_to_device and one through
+    a plain loop over the loader: the same logged metrics (but the rate and
+    the wall-clock stamp) and the same weights."""
+    data, splits, logs = tiny_kitti
+    runs = {}
+    for name, prefetch in (("prefetch", prefetch_to_device),
+                           ("plain", lambda batches, device: ((b, b) for b in batches))):
+        monkeypatch.setattr(trainer_mod, "prefetch_to_device", prefetch)
+        cfg = _config(data, splits, logs, f"prefetch_{name}")
+        cfg.optim.batch_size = 4
+        cfg.log.log_frequency = 1
+        cfg.log.image_panels = False
+        tr = Trainer(cfg, device="cpu")
+        tr.train()
+        lines = [json.loads(ln) for ln in open(os.path.join(logs, f"prefetch_{name}",
+                                                             "metrics.jsonl"))]
+        logged = [{k: v for k, v in m.items() if k not in ("imgs_per_sec", "t")}
+                  for m in lines if "imgs_per_sec" in m]
+        runs[name] = (logged, _params(tr.state))
+    assert len(runs["prefetch"][0]) == 1 and runs["prefetch"][0] == runs["plain"][0]
+    a, b = runs["prefetch"][1], runs["plain"][1]
+    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
 
 
 def test_step_seed_is_a_pure_function():
