@@ -73,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "image_chunks.cuh"
+
 namespace {
 
 constexpr int kFwdCols = 128;            // forward threads: one per column, three channels
@@ -533,11 +535,11 @@ __global__ void __launch_bounds__(kBwdCols, 2)
     store_row(go + (int64_t)(r0 + rows - 3) * W * 3, so, j0, o_hi, t - 96, kBwdCols - 96);
 }
 
-bool grid_for(long long N, int H, int W, int tile, int strip, dim3* grid) {
-  if (N <= 0 || N > 65535 || H < 2 || W < 2) return false;
-  *grid = dim3((unsigned)((W + tile - 1) / tile), (unsigned)((H + strip - 1) / strip),
-               (unsigned)N);
-  return true;
+// The shape check of both launchers: H, W >= 2 (reflect padding), N >= 1,
+// and at most 65,535 strips on the grid's y axis (H up to 65,535 strips of
+// the block's height; no image has that many rows).
+bool valid_shape(long long N, int H, int W, int strip) {
+  return N >= 1 && H >= 2 && W >= 2 && (H + strip - 1) / strip <= 65535;
 }
 
 bool float_aligned(const void* p) { return p && ((uintptr_t)p & 3) == 0; }
@@ -546,17 +548,24 @@ bool float_aligned(const void* p) { return p && ((uintptr_t)p & 3) == 0; }
 
 // pred, target: float32 [N, H, W, 3]; out: float32 [N, H, W]. All contiguous,
 // on one device, 4-byte aligned (16-byte alignment is not needed); H, W >= 2
-// (reflect padding), 1 <= N <= 65535. Launches on `stream` and returns the
-// launch's cudaError_t (0 on success); does not synchronise.
+// (reflect padding), any N >= 1. Launches on `stream`, once per chunk of at
+// most 65,535 images (image_chunks.cuh), and returns the first launch's
+// cudaError_t that is not 0 (0 on success); does not synchronise. A chunk's
+// base pointers (65,535 H W 3 or 65,535 H W floats in) stay 4-byte aligned,
+// and the kernels take each row's 16-byte phase from its own address, so
+// every chunk takes the same path as the whole.
 extern "C" int bbd_ssim_fused_fwd(const void* pred, const void* target, void* out, long long N,
                                   int H, int W, void* stream) {
-  dim3 grid;
   if (!float_aligned(pred) || !float_aligned(target) || !float_aligned(out) ||
-      !grid_for(N, H, W, kFwdTile, kFwdStrip, &grid))
+      !valid_shape(N, H, W, kFwdStrip))
     return (int)cudaErrorInvalidValue;
-  ssim_fused_fwd_kernel<<<grid, kFwdCols, 0, (cudaStream_t)stream>>>(
-      (const float*)pred, (const float*)target, (float*)out, H, W);
-  return (int)cudaGetLastError();
+  const int64_t image = (int64_t)H * W;
+  return bbd::launch_image_chunks(N, [&](long long n0, unsigned count) {
+    const dim3 grid((W + kFwdTile - 1) / kFwdTile, (H + kFwdStrip - 1) / kFwdStrip, count);
+    ssim_fused_fwd_kernel<<<grid, kFwdCols, 0, (cudaStream_t)stream>>>(
+        (const float*)pred + n0 * image * 3, (const float*)target + n0 * image * 3,
+        (float*)out + n0 * image, H, W);
+  });
 }
 
 // pred, target as above; g: float32 [N, H, W], the cotangent of the loss map;
@@ -564,11 +573,14 @@ extern "C" int bbd_ssim_fused_fwd(const void* pred, const void* target, void* ou
 // forward.
 extern "C" int bbd_ssim_fused_bwd(const void* pred, const void* target, const void* g, void* gx,
                                   long long N, int H, int W, void* stream) {
-  dim3 grid;
   if (!float_aligned(pred) || !float_aligned(target) || !float_aligned(g) ||
-      !float_aligned(gx) || !grid_for(N, H, W, kBwdTile, kBwdStrip, &grid))
+      !float_aligned(gx) || !valid_shape(N, H, W, kBwdStrip))
     return (int)cudaErrorInvalidValue;
-  ssim_fused_bwd_kernel<<<grid, kBwdCols, 0, (cudaStream_t)stream>>>(
-      (const float*)pred, (const float*)target, (const float*)g, (float*)gx, H, W);
-  return (int)cudaGetLastError();
+  const int64_t image = (int64_t)H * W;
+  return bbd::launch_image_chunks(N, [&](long long n0, unsigned count) {
+    const dim3 grid((W + kBwdTile - 1) / kBwdTile, (H + kBwdStrip - 1) / kBwdStrip, count);
+    ssim_fused_bwd_kernel<<<grid, kBwdCols, 0, (cudaStream_t)stream>>>(
+        (const float*)pred + n0 * image * 3, (const float*)target + n0 * image * 3,
+        (const float*)g + n0 * image, (float*)gx + n0 * image * 3, H, W);
+  });
 }

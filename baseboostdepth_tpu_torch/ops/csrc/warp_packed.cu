@@ -42,6 +42,7 @@
 #include <stdint.h>
 #include <limits.h>
 
+#include "image_chunks.cuh"
 #include "rgb_texel.cuh"
 
 namespace {
@@ -159,27 +160,40 @@ constexpr int kThreads = 256;  // backward
 
 // frames: uint8 [N, H, W, 3]; px, py: float32 [N, Ho, Wo]; out: float32
 // [N, Ho, Wo, 3]. All contiguous, on one device; frames may start at any
-// byte. Launches on `stream` and returns the launch's cudaError_t (0 on
-// success); does not synchronise.
+// byte. Any N; Ho up to 524,280 rows ((Ho + 7) / 8 <= 65,535 bands on the
+// grid's y axis). Launches on `stream`, once per chunk of at most 65,535
+// images (image_chunks.cuh), and returns the first launch's cudaError_t that
+// is not 0 (0 on success); does not synchronise. The 16-byte path is chosen
+// once, on the whole tensors, and holds for every chunk's start, as in
+// corner_sweep.cu (a chunk of px, py or out is a multiple of 4 floats when
+// Wo % 4 == 0; frames may start at any byte).
 extern "C" int bbd_warp_packed_fwd(const void* frames, const void* px, const void* py, void* out,
                                    long long N, int H, int W, int Ho, int Wo, void* stream) {
   if (!frames || !px || !py || !out || !valid_shape(N, H, W, Ho, Wo))
     return (int)cudaErrorInvalidValue;
   if (N == 0 || Ho == 0 || Wo == 0) return (int)cudaSuccess;
-  if (N > 65535 || (Ho + kRows - 1) / kRows > 65535) return (int)cudaErrorInvalidConfiguration;
+  if ((Ho + kRows - 1) / kRows > 65535) return (int)cudaErrorInvalidConfiguration;
   const auto* f = static_cast<const uint8_t*>(frames);
   const auto* x = static_cast<const float*>(px);
   const auto* y = static_cast<const float*>(py);
+  auto* o = static_cast<float*>(out);
   const bool vec = Wo % 4 == 0 && ((uintptr_t)px | (uintptr_t)py | (uintptr_t)out) % 16 == 0;
-  const dim3 grid((Wo + kCols - 1) / kCols, (Ho + kRows - 1) / kRows, (unsigned)N);
+  const int64_t frame = (int64_t)H * W * 3;
+  const int64_t plane = (int64_t)Ho * Wo;
   const dim3 block(32, kRows);
-  if (vec)
-    warp_packed_fwd_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-        f, x, y, static_cast<float*>(out), H, W, Ho, Wo, f + N * H * W * 3);
-  else
-    warp_packed_fwd_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        f, x, y, static_cast<float*>(out), H, W, Ho, Wo, f + N * H * W * 3);
-  return (int)cudaGetLastError();
+  return bbd::launch_image_chunks(N, [&](long long n0, unsigned count) {
+    const dim3 grid((Wo + kCols - 1) / kCols, (Ho + kRows - 1) / kRows, count);
+    const uint8_t* fc = f + n0 * frame;
+    const float* xc = x + n0 * plane;
+    const float* yc = y + n0 * plane;
+    float* oc = o + n0 * plane * 3;
+    if (vec)
+      warp_packed_fwd_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+          fc, xc, yc, oc, H, W, Ho, Wo, fc + count * frame);
+    else
+      warp_packed_fwd_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+          fc, xc, yc, oc, H, W, Ho, Wo, fc + count * frame);
+  });
 }
 
 // frames, px, py as above; g: float32 [N, Ho, Wo, 3]; gpx, gpy: float32

@@ -8,7 +8,9 @@ In order, it
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the CUDA kernels from ops/csrc/ (first use; the four libraries
      in parallel), prints ptxas' register report and lists the kernels
-     built;
+     built; holds each kernel whose grid puts the images on its z axis
+     (corner sweep, packed warp, float-planes warp, fused SSIM) against its
+     plain version at 65,537 tiny images, two launches each;
   3. holds the corner-sweep kernel against its plain PyTorch version at the
      main path's full shape (156 warps of 192x640 frames): corner planes
      exactly equal, the blended warp and its grid gradient against the plain
@@ -30,7 +32,11 @@ In order, it
   5. holds the float-planes warp's forward and backward kernels against
      their plain versions on the same frames as float32 (/ 255) and grid,
      and on a small two-channel case; the forward against the packed warp,
-     the grid gradient against F.grid_sample's;
+     the grid gradient against F.grid_sample's; then exactly at ragged
+     shapes (C = 1-4, W = 1, Ho = 1, W and Wo not multiples of 4), on
+     sources, coordinates and cotangents off 16-byte alignment, with the
+     last texel of the tensor named, and timed on the same three grids as
+     the uint8 warps, each beside its distinct-texel bound;
   6. runs the capability-probe tool (the seven probes of
      tools/pallas_probe.py) through its entry point, counting the four probe
      kernels' launches, then holds each kernel against its plain version and
@@ -195,17 +201,18 @@ def build():
           f"{len(mods)} libraries built in parallel)")
 
 
-def kernel_phase(torch, card):
+def noise_grid(torch) -> dict:
+    """The white-noise grid at the main path's warp shape (156 uint8 frames
+    of 192x640, 12 samples x 13 merged slots): random frames, KITTI-scale
+    displacement around the identity grid (plus or minus 40 x 10 px); ~10%
+    of points land outside the image, and some exactly on its borders. Its
+    normalized grid, clamped pixel coordinates x, y and a cotangent ct."""
     from baseboostdepth_tpu_torch.ops import clip
-    from baseboostdepth_tpu_torch.ops import warp_cuda as wc
-    from baseboostdepth_tpu_torch.ops.sampling import bilinear_sample
 
     dev = torch.device("cuda", 0)
     N = B * 13  # late stage: 2S-1 = 13 merged slots per sample
     gen = torch.Generator(device=dev).manual_seed(0)
     frames = torch.randint(0, 256, (N, H, W, 3), dtype=torch.uint8, device=dev, generator=gen)
-    # KITTI-scale displacement around the identity grid; ~10% of points land
-    # outside the image, and some exactly on its borders
     yy, xx = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
                             torch.arange(W, device=dev, dtype=torch.float32), indexing="ij")
     px = xx + (torch.rand((N, H, W), device=dev, generator=gen) - 0.5) * 80.0
@@ -217,6 +224,17 @@ def kernel_phase(torch, card):
     y = clip((grid[..., 1] + 1.0) * 0.5 * (H - 1), 0.0, H - 1).contiguous()
     check(bool((x == 0).any() and (x == W - 1).any() and (y == 0).any() and (y == H - 1).any()),
           "grid lacks exact-border points")
+    ct = torch.rand((N, H, W, 3), device=dev, generator=gen)
+    return dict(frames=frames, grid=grid, x=x, y=y, ct=ct)
+
+
+def kernel_phase(torch, card):
+    from baseboostdepth_tpu_torch.ops import warp_cuda as wc
+    from baseboostdepth_tpu_torch.ops.sampling import bilinear_sample
+
+    inp = noise_grid(torch)
+    frames, grid, x, y, ct = (inp[n] for n in ("frames", "grid", "x", "y", "ct"))
+    N = frames.shape[0]
 
     # corner planes: kernel vs plain version, exactly
     c_kernel = wc.corner_sweep(frames, x, y)
@@ -228,7 +246,6 @@ def kernel_phase(torch, card):
     print(f"kernel check: corner planes exactly equal to the plain version at N={N} {H}x{W}")
 
     # blend + grid gradient: kernel path vs the plain float warp
-    ct = torch.rand((N, H, W, 3), device=dev, generator=gen)
     g1 = grid.clone().requires_grad_(True)
     g2 = grid.clone().requires_grad_(True)
     out_k = wc.bilinear_sample_corner_u8(frames, g1)
@@ -283,7 +300,7 @@ def kernel_phase(torch, card):
         "corner_fwd_bwd_ms": ms_corner_fb, "grid_sample_fwd_bwd_ms": ms_gs_fb,
         "grid_sample_grid_grad_ms": ms_gs_bwd,
     }
-    return stats, dict(frames=frames, grid=grid, x=x, y=y, ct=ct)
+    return stats, inp
 
 
 # (N, H, W) of the SSIM checks: the main path's late (12 samples x 7 and x 6
@@ -642,74 +659,221 @@ def distinct_texels(torch, frames, x, y) -> int:
     return int(named.sum())
 
 
+# the warp kernels timed on the three grids: name -> (module under ops/,
+# whether it takes the frames as float32 (/ 255), its tolerance against its
+# plain version (None: exactly equal; else relative to the plain version's
+# largest entry), the bytes a distinct source texel and a pixel's
+# coordinates (8 B) and outputs (and cotangent) add to its bound)
+GRID_KERNELS = {
+    "corner_sweep": ("warp_cuda", False, None, 3, 8 + 16),
+    "warp_packed_fwd": ("warp_cuda", False, None, 3, 8 + 12),
+    "warp_packed_bwd": ("warp_cuda", False, 1e-6, 3, 8 + 12 + 8),
+    "warp_planes_fwd": ("warp_planes", True, None, 12, 8 + 12),
+    "warp_planes_bwd": ("warp_planes", True, None, 12, 8 + 12 + 8),
+}
+
+
 def warp_grid_phase(torch, card, grids):
-    """corner_sweep, warp_packed_fwd and warp_packed_bwd on each grid (the
-    white-noise grid of kernel_phase, the captured late and early step
-    grids): held against their plain versions (corner planes and forward
-    exactly, backward to 1e-6 of its largest entry), then timed. Each
-    bound counts the distinct source texels the grid names (3 B each), the
-    coordinates (8 B a pixel) and the outputs (corner 16 B, forward 12 B;
-    backward reads a 12 B cotangent and writes 8 B)."""
-    from baseboostdepth_tpu_torch.ops import warp_cuda as wc
+    """Each GRID_KERNELS kernel on each grid (the white-noise grid of
+    kernel_phase, the captured late and early step grids): held against its
+    plain version, then timed. Each bound counts the distinct source texels
+    the grid names, the coordinates and the outputs (a backward reads a
+    cotangent, 3 floats a pixel, and writes two gradients)."""
+    import importlib
 
     out = {}
     for label, g in grids.items():
-        frames, x, y = g["frames"], g["x"], g["y"]
+        x, y = g["x"], g["y"]
         N, ho, wo = x.shape
         ct = torch.rand((N, ho, wo, 3), device=x.device,
                         generator=torch.Generator(device=x.device).manual_seed(9))
-        check(torch.equal(wc.corner_sweep(frames, x, y), wc.corner_sweep_reference(frames, x, y)),
-              f"{label} grid: corner planes differ from the plain version")
-        check(torch.equal(wc.warp_packed_fwd(frames, x, y),
-                          wc.warp_packed_fwd_reference(frames, x, y)),
-              f"{label} grid: warp_packed_fwd differs from its plain version")
-        for k, p in zip(wc.warp_packed_bwd(frames, x, y, ct),
-                        wc.warp_packed_bwd_reference(frames, x, y, ct)):
-            rel = float((k - p).abs().max() / p.abs().max())
-            check(rel <= 1e-6, f"{label} grid: warp_packed_bwd differs from its plain version "
-                               f"by {rel} (relative)")
-        texels = distinct_texels(torch, frames, x, y)
+        sources = {False: g["frames"], True: g["frames"].float().div(255.0)}
+        texels = distinct_texels(torch, g["frames"], x, y)
         pixels = N * ho * wo
         row = {"n": N, "distinct_texels": texels}
-        for name, fn, per_pixel in (
-                ("corner_sweep", lambda: wc.corner_sweep(frames, x, y), 8 + 16),
-                ("warp_packed_fwd", lambda: wc.warp_packed_fwd(frames, x, y), 8 + 12),
-                ("warp_packed_bwd", lambda: wc.warp_packed_bwd(frames, x, y, ct), 8 + 12 + 8)):
-            nbytes = 3 * texels + pixels * per_pixel
-            ms = time_ms(torch, fn)
+        for name, (module, as_float, tol, texel_bytes, pixel_bytes) in GRID_KERNELS.items():
+            mod = importlib.import_module(f"baseboostdepth_tpu_torch.ops.{module}")
+            src = sources[as_float]
+            args = (src, x, y, ct) if name.endswith("_bwd") else (src, x, y)
+            fn = getattr(mod, name)
+            got, want = fn(*args), getattr(mod, f"{name}_reference")(*args)
+            for k, p in zip(*(v if isinstance(v, tuple) else (v,) for v in (got, want))):
+                if tol is None:
+                    check(torch.equal(k, p), f"{label} grid: {name} differs from its plain "
+                                             f"version by {float((k - p).abs().max())}")
+                else:
+                    rel = float((k - p).abs().max() / p.abs().max())
+                    check(rel <= tol, f"{label} grid: {name} differs from its plain version "
+                                      f"by {rel} (relative)")
+            del got, want
+            nbytes = texel_bytes * texels + pixels * pixel_bytes
+            ms = time_ms(torch, lambda: fn(*args))
             b = bound(name, nbytes, pixels)
             row[name] = {"ms": ms, "bound_ms": b[0], "bound_by": b[1],
                          "share_of_bound": b[0] / ms}
             print(f"timing {name} kernel on the {label} grid (N={N} {ho}x{wo}, {texels} "
-                  f"distinct texels): {ms:.4f} ms, {b[0] / ms:.1%} of its {b[1]} bound "
-                  f"{b[0]:.4f} ms [{card}]")
+                  f"distinct texels, {src.dtype}): {ms:.4f} ms, {b[0] / ms:.1%} of its "
+                  f"{b[1]} bound {b[0]:.4f} ms [{card}]")
+        print(f"kernel check: {', '.join(GRID_KERNELS)} against their plain versions at the "
+              f"{label} grid (exactly, warp_packed_bwd within 1e-6 of its largest entry)")
         out[label] = row
-        del ct
+        del ct, sources
     torch.cuda.empty_cache()
     return out
 
 
-def uint8_warp_phase(torch, card, noise, stats):
-    """The uint8 warp kernels off the main path's shape (warp_u8_checks),
-    then on the white-noise grid `noise` and the captured step grids
-    (warp_grid_phase); each kernel's entry in `stats` takes its times and
-    bounds: `ms` and `bound_ms` on the noise grid, as before, beside
-    `noise_grid_*`, `step_grid_*` (the late step, N = 156) and
-    `step_grid_early_*` (N = 108); the checks go with corner_sweep's."""
-    checks = warp_u8_checks(torch)
-    by_grid = warp_grid_phase(torch, card, {"noise": noise, **capture_step_grids(torch)})
-    for name in ("corner_sweep", "warp_packed_fwd", "warp_packed_bwd"):
-        on = {label: row[name] for label, row in by_grid.items()}
-        stats[name].update(
-            ms=on["noise"]["ms"], bound_ms=on["noise"]["bound_ms"],
-            bound_by=on["noise"]["bound_by"], noise_grid_ms=on["noise"]["ms"],
-            noise_grid_bound_ms=on["noise"]["bound_ms"], step_grid_ms=on["late_F7"]["ms"],
-            step_grid_bound_ms=on["late_F7"]["bound_ms"],
-            step_grid_early_ms=on["early_F2"]["ms"],
-            step_grid_early_bound_ms=on["early_F2"]["bound_ms"],
-            distinct_texels={label: row["distinct_texels"] for label, row in by_grid.items()})
-    stats["corner_sweep"]["uint8_warp_checks"] = checks
-    return by_grid
+def grid_stats(by_grid, name) -> dict:
+    """A warp kernel's entry fields from its times on the three grids: `ms`
+    and `bound_ms` on the noise grid beside `noise_grid_*`, `step_grid_*`
+    (the late step, N = 156) and `step_grid_early_*` (N = 108)."""
+    on = {label: row[name] for label, row in by_grid.items()}
+    return dict(
+        ms=on["noise"]["ms"], bound_ms=on["noise"]["bound_ms"], bound_by=on["noise"]["bound_by"],
+        noise_grid_ms=on["noise"]["ms"], noise_grid_bound_ms=on["noise"]["bound_ms"],
+        step_grid_ms=on["late_F7"]["ms"], step_grid_bound_ms=on["late_F7"]["bound_ms"],
+        step_grid_early_ms=on["early_F2"]["ms"],
+        step_grid_early_bound_ms=on["early_F2"]["bound_ms"],
+        distinct_texels={label: row["distinct_texels"] for label, row in by_grid.items()})
+
+
+# float-planes warp checks off the main path's shape: (N, H, W, C, Ho, Wo,
+# float offsets of the source, of px and py, of the cotangent)
+WARP_PLANES_CASES = (
+    (3, 17, 29, 3, 17, 29, 0, 0, 0),  # W, Wo not multiples of 4: scalar path
+    (3, 20, 33, 3, 21, 50, 0, 0, 0),  # Wo % 4 == 2: scalar path
+    (2, 9, 1, 3, 9, 4, 0, 0, 0),  # W = 1: every x0 is the last column
+    (2, 1, 37, 3, 1, 36, 0, 0, 0),  # H = 1, Ho = 1
+    (3, 16, 64, 3, 1, 64, 0, 0, 0),  # Ho = 1, W % 4 == 0
+    (3, 20, 33, 1, 11, 52, 0, 0, 0),  # C = 1
+    (2, 31, 63, 2, 33, 64, 0, 0, 0),  # C = 2
+    (2, 25, 40, 4, 26, 40, 0, 0, 0),  # C = 4
+    (4, 48, 160, 3, 48, 160, 1, 0, 0),  # source 4 B off 16-byte alignment
+    (2, H, W, 3, H, W, 3, 0, 0),  # full width, source 12 B off
+    (2, 30, 64, 3, 30, 64, 0, 1, 0),  # coordinates 4 B off: scalar path
+    (2, 30, 64, 3, 30, 64, 2, 0, 2),  # source and cotangent 8 B off: scalar backward
+    (2, 30, 64, 2, 30, 64, 0, 3, 1),  # C = 2, everything off alignment
+)
+
+
+def warp_planes_inputs(torch, case, seed):
+    """Float images, clamped coordinates and a cotangent for one
+    WARP_PLANES_CASES entry: coordinates spread 10% past each border and
+    clamped into the image, some exactly on the borders, some on whole
+    texels, and the last pixel of the last image at (W-1, H-1), the last
+    texel of the tensor (where an aligned word would leave it); each tensor
+    a contiguous view `offset` floats into a buffer of its own."""
+    n, h, w, c, ho, wo, s_off, c_off, g_off = case
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def placed(x, offset):
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+        return buf[offset:].view(x.shape).copy_(x)
+
+    src = torch.rand((n, h, w, c), device=dev, generator=gen)
+    coords = []
+    for size in (w, h):
+        v = (torch.rand((n, ho, wo), device=dev, generator=gen) * 1.2 - 0.1) * (size - 1)
+        pick = torch.rand((n, ho, wo), device=dev, generator=gen)
+        v = torch.where(pick < 0.05, 0.0, torch.where(pick > 0.95, float(size - 1), v))
+        v = torch.where((pick > 0.45) & (pick < 0.5), torch.floor(v), v)
+        v = v.clamp(0.0, size - 1)
+        v[-1, -1, -1] = size - 1
+        coords.append(v)
+    ct = torch.rand((n, ho, wo, c), device=dev, generator=gen)
+    return (placed(src, s_off), placed(coords[0], c_off), placed(coords[1], c_off),
+            placed(ct, g_off))
+
+
+def warp_planes_checks(torch):
+    """warp_planes_fwd and warp_planes_bwd against their plain versions at
+    WARP_PLANES_CASES, both exactly equal."""
+    from baseboostdepth_tpu_torch.ops import warp_planes as wp
+
+    results = []
+    for seed, case in enumerate(WARP_PLANES_CASES):
+        src, x, y, ct = warp_planes_inputs(torch, case, seed)
+        n, h, w, c, ho, wo, s_off, c_off, g_off = case
+        label = (f"images {(n, h, w, c)} -> {(ho, wo)}, source / coordinates / cotangent "
+                 f"{4 * s_off} / {4 * c_off} / {4 * g_off} B off 16-byte alignment")
+        check(src.data_ptr() % 16 == 4 * s_off and x.data_ptr() % 16 == 4 * c_off
+              and ct.data_ptr() % 16 == 4 * g_off, f"{label}: alignment of the inputs")
+        check(bool((x == 0).any() and (x == w - 1).any() and (y == 0).any()
+                   and (y == h - 1).any()), f"{label}: no exact-border points")
+        f_k, f_p = wp.warp_planes_fwd(src, x, y), wp.warp_planes_fwd_reference(src, x, y)
+        b_k = wp.warp_planes_bwd(src, x, y, ct)
+        b_p = wp.warp_planes_bwd_reference(src, x, y, ct)
+        torch.cuda.synchronize()
+        fwd_err = float((f_k - f_p).abs().max())
+        check(torch.equal(f_k, f_p), f"{label}: warp_planes_fwd differs from its plain version "
+                                     f"by {fwd_err}")
+        for name, k, p in zip(("gpx", "gpy"), b_k, b_p):
+            err = float((k - p).abs().max())
+            check(torch.equal(k, p), f"{label}: warp_planes_bwd's {name} differs from its plain "
+                                     f"version by {err}")
+        results.append({"case": list(case), "fwd_equal": True, "bwd_equal": True})
+        print(f"kernel check: warp_planes_fwd and warp_planes_bwd exactly equal to their plain "
+              f"versions at {label}")
+    return results
+
+
+N_MANY = 65537  # two launches of the 3-D-grid kernels: 65,535 images, then 2
+
+
+def image_count_checks(torch):
+    """Each 3-D-grid kernel at N_MANY tiny images, held against its plain
+    version: corner_sweep, warp_packed_fwd (and warp_packed_bwd, on the same
+    inputs) on uint8 frames of 2x7 warped to 2x8 (a chunk of frames or float
+    images then starts off 16-byte alignment, and the outputs take the
+    16-byte paths); warp_planes_fwd / _bwd on the same frames as float32;
+    the SSIM pair on 2x2 images. Exact, but the backward of the packed warp
+    (1e-6 of its largest entry) and of SSIM (1e-4, as ssim_checks)."""
+    from baseboostdepth_tpu_torch.ops import ssim_cuda as sc
+    from baseboostdepth_tpu_torch.ops import warp_cuda as wc
+    from baseboostdepth_tpu_torch.ops import warp_planes as wp
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n, h, w, ho, wo = N_MANY, 2, 7, 2, 8
+    frames = torch.randint(0, 256, (n, h, w, 3), dtype=torch.uint8, device=dev, generator=gen)
+    x = (torch.rand((n, ho, wo), device=dev, generator=gen) * (w - 1)).contiguous()
+    y = (torch.rand((n, ho, wo), device=dev, generator=gen) * (h - 1)).contiguous()
+    x[-1, -1, -1], y[-1, -1, -1] = w - 1, h - 1
+    ct = torch.rand((n, ho, wo, 3), device=dev, generator=gen)
+    src = frames.float().div(255.0)
+
+    def rel(k, p):
+        return float((k - p).abs().max() / p.abs().max())
+
+    check(torch.equal(wc.corner_sweep(frames, x, y), wc.corner_sweep_reference(frames, x, y)),
+          f"N={n}: corner planes differ from the plain version")
+    check(torch.equal(wc.warp_packed_fwd(frames, x, y), wc.warp_packed_fwd_reference(frames, x, y)),
+          f"N={n}: warp_packed_fwd differs from its plain version")
+    packed_bwd = max(rel(k, p) for k, p in zip(wc.warp_packed_bwd(frames, x, y, ct),
+                                               wc.warp_packed_bwd_reference(frames, x, y, ct)))
+    check(packed_bwd <= 1e-6, f"N={n}: warp_packed_bwd differs from its plain version by "
+                              f"{packed_bwd} (relative)")
+    check(torch.equal(wp.warp_planes_fwd(src, x, y), wp.warp_planes_fwd_reference(src, x, y)),
+          f"N={n}: warp_planes_fwd differs from its plain version")
+    check(all(torch.equal(k, p) for k, p in zip(wp.warp_planes_bwd(src, x, y, ct),
+                                                wp.warp_planes_bwd_reference(src, x, y, ct))),
+          f"N={n}: warp_planes_bwd differs from its plain version")
+    del frames, x, y, ct, src
+    pred = torch.rand((n, 2, 2, 3), device=dev, generator=gen)
+    tgt = torch.rand((n, 2, 2, 3), device=dev, generator=gen)
+    g = torch.rand((n, 2, 2, 1), device=dev, generator=gen)
+    check(torch.equal(sc.ssim_fused_fwd(pred, tgt), sc.ssim_fused_fwd_reference(pred, tgt)),
+          f"N={n}: ssim_fused_fwd differs from its plain version")
+    ssim_bwd = rel(sc.ssim_fused_bwd(pred, tgt, g), sc.ssim_fused_bwd_reference(pred, tgt, g))
+    check(ssim_bwd <= 1e-4, f"N={n}: ssim_fused_bwd differs from its plain version by "
+                            f"{ssim_bwd} (relative)")
+    torch.cuda.synchronize()
+    print(f"kernel check: at N={n} images (two launches each) corner_sweep, warp_packed_fwd, "
+          f"warp_planes_fwd / _bwd and ssim_fused_fwd exactly equal to their plain versions, "
+          f"warp_packed_bwd within {packed_bwd:.3e} and ssim_fused_bwd within {ssim_bwd:.3e} "
+          f"of their largest entries")
+    return {"n": n, "warp_packed_bwd_max_rel_err": packed_bwd,
+            "ssim_fused_bwd_max_rel_err": ssim_bwd}
 
 
 def planes_phase(torch, card, k, inp):
@@ -774,8 +938,6 @@ def planes_phase(torch, card, k, inp):
           f"{u8_gap:.3e}, vs F.grid_sample {gs_val:.3e}; grid gradient vs F.grid_sample "
           f"{gs_grad:.3e} of its largest value (off the border)")
 
-    ms_fwd = time_ms(torch, lambda: wp.warp_planes_fwd(src, x, y))
-    ms_bwd = time_ms(torch, lambda: wp.warp_planes_bwd(src, x, y, ct))
     ms_fwd_plain = time_ms(torch, lambda: wp.warp_planes_fwd_reference(src, x, y), iters=5)
     ms_bwd_plain = time_ms(torch, lambda: wp.warp_planes_bwd_reference(src, x, y, ct), iters=5)
 
@@ -784,13 +946,8 @@ def planes_phase(torch, card, k, inp):
         (wp.bilinear_sample_planes(src, g) * ct).sum().backward()
 
     ms_fb = time_ms(torch, planes_fwd_bwd)
-    pixels = N * H * W
-    b_fwd = bound("warp_planes_fwd", src.numel() * 4 + pixels * (8 + 12), pixels)
-    b_bwd = bound("warp_planes_bwd", src.numel() * 4 + pixels * (8 + 12 + 8), pixels)
-    print(f"timing warp_planes_fwd kernel: {ms_fwd:.4f} ms (bound {b_fwd[0]:.4f} ms, "
-          f"{b_fwd[1]}) plain {ms_fwd_plain:.4f} ms [{card}]")
-    print(f"timing warp_planes_bwd kernel: {ms_bwd:.4f} ms (bound {b_bwd[0]:.4f} ms, "
-          f"{b_bwd[1]}) plain {ms_bwd_plain:.4f} ms [{card}]")
+    print(f"timing plain versions: warp_planes_fwd_reference {ms_fwd_plain:.4f} ms, "
+          f"warp_planes_bwd_reference {ms_bwd_plain:.4f} ms [{card}]")
     print(f"timing planes warp fwd+bwd (two kernels + clip): {ms_fb:.4f} ms; F.grid_sample "
           f"fwd+bwd {k['grid_sample_fwd_bwd_ms']:.4f} ms [{card}]")
     common = {"planes_fwd_bwd_ms": ms_fb, "grid_sample_fwd_bwd_ms": k["grid_sample_fwd_bwd_ms"],
@@ -798,13 +955,11 @@ def planes_phase(torch, card, k, inp):
               "grid_grad_vs_grid_sample_max_rel_err": gs_grad, "c2_max_abs_err": small_err}
     return {
         "warp_planes_fwd": {
-            "max_abs_err": fwd_err, "ms": ms_fwd, "plain_ms": ms_fwd_plain,
-            "bound_ms": b_fwd[0], "bound_by": b_fwd[1], "library_ms": k["library_ms"],
+            "max_abs_err": fwd_err, "plain_ms": ms_fwd_plain, "library_ms": k["library_ms"],
             "library_call": "F.grid_sample(bilinear, border, align_corners=True) forward, "
                             "the same float32 frames (NCHW) and grid", **common},
         "warp_planes_bwd": {
-            "max_abs_err": bwd_err, "ms": ms_bwd, "plain_ms": ms_bwd_plain,
-            "bound_ms": b_bwd[0], "bound_by": b_bwd[1],
+            "max_abs_err": bwd_err, "plain_ms": ms_bwd_plain,
             "library_ms": k["grid_sample_grid_grad_ms"],
             "library_call": "aten.grid_sampler_2d_backward(bilinear, border, "
                             "align_corners=True, output_mask=[False, True]): the grid "
@@ -1487,13 +1642,22 @@ def main() -> int:
     print(card)
 
     build()
+    many = image_count_checks(torch)
     corner, inputs = kernel_phase(torch, card)
     stats = {"corner_sweep": corner, **ssim_phase(torch, card),
              **packed_phase(torch, card, corner, inputs),
              **planes_phase(torch, card, corner, inputs)}
-    uint8_warp_phase(torch, card, inputs, stats)
-    del inputs
+    grids = {"noise": inputs, **capture_step_grids(torch)}
+    stats["corner_sweep"]["uint8_warp_checks"] = warp_u8_checks(torch)
+    stats["warp_planes_fwd"]["warp_planes_checks"] = warp_planes_checks(torch)
+    by_grid = warp_grid_phase(torch, card, grids)
+    for name in GRID_KERNELS:
+        stats[name].update(grid_stats(by_grid, name))
+    del inputs, grids
     torch.cuda.empty_cache()
+    for name in ("corner_sweep", "ssim_fused_fwd", "ssim_fused_bwd", "warp_packed_fwd",
+                 "warp_packed_bwd", "warp_planes_fwd", "warp_planes_bwd"):
+        stats[name]["image_count_check"] = many
     probe_run, probe_stats = probe_phase(torch, card)
     stats.update(probe_stats)
     parity_phase(torch)

@@ -37,8 +37,20 @@ from baseboostdepth_tpu_torch.ops import ssim as ts
 from baseboostdepth_tpu_torch.ops import ssim_cuda as tsc
 
 SHAPES = [(2, 24, 40), (3, 17, 29)]
+N_MANY = 65537  # more images than a CUDA grid's z axis holds (65,535)
 EDGE_SHAPES = [(1, 2, 2), (1, 3, 5), (1, 9, 70)]
 KINDS = ["correlated", "uncorrelated", "anticorrelated"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs files in parallel processes, and
+    torch's default pool (one thread per core) in each oversubscribes the
+    CPU and slows every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _inputs(seed, shape, kind, tie=True):
@@ -112,6 +124,40 @@ def test_fused_matches_pallas_kernels_edge_shapes(shape, kind):
     cot = np.random.default_rng(7).random(shape + (1,), dtype=np.float32)
     g, _ = _assert_matches_pallas(pred, tgt, cot, out_atol=2e-6)
     assert np.abs(g).max() > 0
+
+
+def test_fused_takes_more_images_than_a_grid_axis_holds():
+    """N = 65,537 images of 2x2, more than a CUDA grid's z axis holds: the
+    wrapper takes them (it once refused N > 65,535 on any device), and its
+    loss map and gradient agree with the interpret-mode Pallas kernels on
+    every 128th image and on the images around 65,535, at the file's
+    tolerances (1e-6; 1e-5 of the largest gradient entry). The JAX function
+    computes each image alone, so those images' inputs give those images'
+    outputs. On the CPU this runs the plain version, which has no chunks:
+    the CUDA launchers' two launches (65,535 images, then 2) are held to
+    it on the card by chip_smoke.py::image_count_checks.
+    Each image is a checkerboard (corners (0,0) and (1,1) in [0.7, 1], the
+    others in [0, 0.3]), so every reflect-folded window has spread: on
+    near-flat 2x2 images SSIM's cancellation (E[x^2] - mu^2) decides the
+    last digits, and there the port and JAX differed by up to 7.2e-6 in
+    the loss map while each was as far from a float64 computation of the
+    same formula (6.3e-6 and 7.1e-6): float32 rounding on both sides, not
+    a fault of either. About 3 s on one CPU worker."""
+    shape = (N_MANY, 2, 2)
+    rng = np.random.default_rng(17)
+    tgt = rng.random(shape + (3,), dtype=np.float32) * np.float32(0.3)
+    tgt[:, 0, 0] += np.float32(0.7)
+    tgt[:, 1, 1] += np.float32(0.7)
+    pred = np.clip(tgt + 0.1 * rng.standard_normal(tgt.shape), 0, 1).astype(np.float32)
+    cot = np.random.default_rng(8).random(shape + (1,), dtype=np.float32)
+    out, g, _ = _port_fused(pred, tgt, cot)
+    assert out.shape == shape + (1,) and g.shape == shape + (3,)
+
+    picked = np.r_[np.arange(0, N_MANY, 128), np.arange(65530, N_MANY)]
+    jout, jg = _jax_fused(pred[picked], tgt[picked], cot[picked])
+    np.testing.assert_allclose(out[picked], jout, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(g[picked], jg, rtol=0, atol=1e-5 * np.abs(jg).max())
+    assert np.abs(jg).max() > 0
 
 
 @pytest.mark.parametrize("shape", SHAPES)

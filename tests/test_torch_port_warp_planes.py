@@ -26,23 +26,46 @@ from baseboostdepth_tpu.ops import warp_pallas as wp
 from baseboostdepth_tpu_torch.ops import sampling as tsampling
 from baseboostdepth_tpu_torch.ops import warp_planes as tp
 
-# (lead, H, W, C): the shapes of tests/test_warp_pallas.py -- C = 3 and
-# C = 2, the odd 30x100 shape (not a multiple of the TPU's tiles), a
-# leading slot axis -- with grids up to 1.15 outside [-1, 1]
+# (lead, H, W, C, reach[, (Ho, Wo)]): the shapes of tests/test_warp_pallas.py
+# -- C = 3 and C = 2, the odd 30x100 shape (not a multiple of the TPU's
+# tiles), a leading slot axis -- with grids up to 1.15 outside [-1, 1]; then
+# the shapes of the CUDA kernels' other paths: C = 1 and C = 4, W = 1, H = 1
+# (Ho = 1), a width that is not a multiple of 4, an output grid of another
+# size than the image. The new cases take about 3 s each on one CPU worker.
 SHAPES = [((2,), 40, 256, 3, 1.15), ((3,), 16, 128, 2, 1.05), ((1,), 30, 100, 3, 1.1),
-          ((2, 3), 16, 128, 3, 1.05)]
+          ((2, 3), 16, 128, 3, 1.05), ((2,), 12, 36, 1, 1.1), ((2,), 10, 24, 4, 1.1),
+          ((2,), 9, 1, 3, 1.1), ((2,), 1, 37, 3, 1.1), ((1,), 14, 30, 3, 1.1),
+          ((2,), 20, 33, 3, 1.1, (11, 50))]
 
 
-def _inputs(seed, lead, H, W, C, reach):
-    """Float images, a grid that leaves the image and hits its borders
-    exactly (-1 and 1 map to x = 0 / W-1 and y = 0 / H-1), a cotangent."""
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs files in parallel processes, and
+    torch's default pool (one thread per core) in each oversubscribes the
+    CPU and slows every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _shape_id(s):
+    out = f"to{s[5][0]}x{s[5][1]}" if len(s) > 5 else ""
+    return "x".join(map(str, (*s[0], *s[1:4]))) + out
+
+
+def _inputs(seed, lead, H, W, C, reach, out=None):
+    """Float images, a grid (of the image's size, or `out` = (Ho, Wo)) that
+    leaves the image and hits its borders exactly (-1 and 1 map to x = 0 /
+    W-1 and y = 0 / H-1), a cotangent."""
+    Ho, Wo = out or (H, W)
     rng = np.random.default_rng(seed)
     img = rng.random(lead + (H, W, C)).astype(np.float32)
-    grid = ((rng.random(lead + (H, W, 2)) * 2 - 1) * reach).astype(np.float32)
-    pick = rng.random(lead + (H, W, 2))
+    grid = ((rng.random(lead + (Ho, Wo, 2)) * 2 - 1) * reach).astype(np.float32)
+    pick = rng.random(lead + (Ho, Wo, 2))
     grid[pick < 0.04] = -1.0
     grid[pick > 0.96] = 1.0
-    ct = rng.random(lead + (H, W, C)).astype(np.float32)
+    ct = rng.random(lead + (Ho, Wo, C)).astype(np.float32)
     return img, grid, ct
 
 
@@ -54,10 +77,11 @@ def _port(img, grid, ct):
     return out.detach().numpy(), tg.grad.numpy(), ti.grad
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, (*s[0], *s[1:4]))))
+@pytest.mark.parametrize("shape", SHAPES, ids=_shape_id)
 def test_planes_warp_matches_pallas_kernels(shape):
-    lead, H, W, C, reach = shape
-    img, grid, ct = _inputs(H + W + C, lead, H, W, C, reach)
+    lead, H, W, C, reach = shape[:5]
+    Ho, Wo = shape[5] if len(shape) > 5 else (H, W)
+    img, grid, ct = _inputs(H + W + C, lead, H, W, C, reach, (Ho, Wo))
 
     def jf(g):
         return wp.bilinear_sample_pallas(jnp.asarray(img), g, interpret=True)
@@ -67,12 +91,14 @@ def test_planes_warp_matches_pallas_kernels(shape):
     jout, jgrad = np.asarray(jout), np.asarray(jgrad)
 
     out, grad, img_grad = _port(img, grid, ct)
-    assert out.shape == lead + (H, W, C) and out.dtype == np.float32
+    assert out.shape == lead + (Ho, Wo, C) and out.dtype == np.float32
     np.testing.assert_allclose(out, jout, rtol=0, atol=3e-7)
     np.testing.assert_allclose(grad, jgrad, rtol=0, atol=1e-6 * np.abs(jgrad).max())
-    # exact-border points carry the clip's 0.5 gradient at x = 0
-    border = (grid[..., 0] == -1.0) & (np.abs(jgrad[..., 0]) > 1e-3)
-    assert border.any()
+    if W > 1:  # exact-border points carry the clip's 0.5 gradient at x = 0
+        border = (grid[..., 0] == -1.0) & (np.abs(jgrad[..., 0]) > 1e-3)
+        assert border.any()
+    else:  # x = 0 whatever the grid says: no gradient in x
+        assert not grad[..., 0].any() and not jgrad[..., 0].any()
     # the image receives no gradient, as from the TPU kernel's VJP
     assert img_grad is None
 
