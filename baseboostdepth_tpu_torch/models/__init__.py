@@ -1,10 +1,15 @@
 """Model zoo registry, the counterpart of `baseboostdepth_tpu/models/__init__.py`.
 
 Every depth network obeys one contract:
-    module(images [B, H, W, 3]) -> tuple of disparity maps [B, h, w, 1],
-    finest first, disp_s at 1/2^s resolution, sigmoid in [0, 1], float32.
-Only the md2 zoo is ported; the pose pair is always ResNet-18 2-frame +
-pose head (reference trainer.py:94-103).
+    module(images [B, H, W, 3], generator=None) -> tuple of four disparity
+    maps [B, h, w, 1], finest first, disp_s at 1/2^s resolution, sigmoid in
+    [0, 1], float32 (SQLdepth returns metric depth at 1/2 resolution
+    instead, four times -- flagged via DEPTH_IS_METRIC). `generator` draws
+    the SQL head's dropout masks in train mode; the other zoos draw nothing.
+    module.dispconvs() lists the disparity-head convs (none for SQLdepth).
+Ported zoos: md2 (ResNet-18/34/50/101/152), cadepth, sql and sql_large;
+monovit and diffnet are not ported yet. The pose pair is always ResNet-18
+2-frame + pose head (reference trainer.py:94-103).
 """
 
 from __future__ import annotations
@@ -14,9 +19,15 @@ from typing import Optional
 import torch
 from torch import nn
 
+from baseboostdepth_tpu_torch.models.cadepth import CADepthNet
 from baseboostdepth_tpu_torch.models.depth_decoder import DepthDecoder, init_decoder_
 from baseboostdepth_tpu_torch.models.pose import PoseDecoder, PoseNet  # noqa: F401
-from baseboostdepth_tpu_torch.models.resnet import ResnetEncoder, init_encoder_
+from baseboostdepth_tpu_torch.models.resnet import (  # noqa: F401
+    ResnetEncoder,
+    encoder_channels,
+    init_encoder_,
+)
+from baseboostdepth_tpu_torch.models.sql import SQLDepthNet, init_sql_
 
 #: zoos whose "disparity" output is already metric depth (SQLdepth).
 DEPTH_IS_METRIC = frozenset({"sql", "sql_large"})
@@ -31,9 +42,12 @@ class MD2DepthNet(nn.Module):
         self.encoder = ResnetEncoder(num_layers)
         self.decoder = DepthDecoder(self.encoder.num_ch_enc)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
         feats = self.encoder(x.permute(0, 3, 1, 2))
         return tuple(d.permute(0, 2, 3, 1) for d in self.decoder(feats))
+
+    def dispconvs(self):
+        return [head.conv for head in self.decoder.decoder[10:]]
 
 
 def build_depth_net(
@@ -41,18 +55,24 @@ def build_depth_net(
     num_layers: int = 18,
     generator: Optional[torch.Generator] = None,
 ) -> nn.Module:
-    """Build (and initialise from `generator`) a depth network by zoo name.
-    The decoder always owns all four disparity heads (scales 0-3)."""
+    """Build (and initialise from `generator`) a depth network by zoo name
+    ('md2', 'cadepth', 'sql', 'sql_large'). `num_layers` is md2's ResNet
+    depth; cadepth and sql always use a ResNet-50, as in the JAX package.
+    The md2 and cadepth decoders always own all four disparity heads
+    (scales 0-3)."""
     zoo = zoo.lower()
-    if zoo == "md2":
-        net = MD2DepthNet(num_layers=num_layers)
+    if zoo in ("md2", "cadepth"):
+        net = MD2DepthNet(num_layers=num_layers) if zoo == "md2" else CADepthNet()
         init_encoder_(net.encoder, generator)
         init_decoder_(net.decoder, generator)
         return net
-    if zoo in ("monovit", "sql", "sql_large", "cadepth", "diffnet"):
+    if zoo in ("sql", "sql_large"):
+        net = SQLDepthNet(large=zoo == "sql_large")
+        init_sql_(net, generator)
+        return net
+    if zoo in ("monovit", "diffnet"):
         raise NotImplementedError(
-            f"zoo {zoo!r} is not ported yet: ROADMAP.md, next slice 6 (the other zoos)"
-        )
+            f"zoo {zoo!r} is not ported yet: ROADMAP.md, A5 (diffnet and monovit)")
     raise ValueError(f"unknown zoo: {zoo}")
 
 

@@ -83,16 +83,21 @@ class DepthDecoder(nn.Module):
 
 
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
-    """flax's lecun_normal: truncated normal (+-2 std), variance 1/fan_in."""
-    fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+    """flax's lecun_normal: truncated normal (+-2 std), variance 1/fan_in
+    (a conv's [O, I, kh, kw] or a linear layer's [O, I] weight)."""
+    fan_in = w[0].numel()
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
 def init_decoder_(module: nn.Module, generator: torch.Generator) -> None:
-    """Decoder and pose-head convs: lecun_normal weights, zero bias (flax's
-    nn.Conv defaults, depth_decoder.py:114)."""
+    """Decoder and head layers as flax initialises them (depth_decoder.py:114):
+    convs and linear layers lecun_normal with zero bias, BatchNorm and
+    LayerNorm (1, 0)."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
             lecun_normal_(m.weight, generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+            nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)

@@ -1,11 +1,14 @@
-"""ResNet-18 encoder (Monodepth2 zoo) in PyTorch, the counterpart of
+"""ResNet-18/34/50/101/152 encoders (Monodepth2 zoo, and the ResNet-50 of
+CADepth and SQLdepth) in PyTorch, the counterpart of
 `baseboostdepth_tpu/models/resnet.py`.
 
 Module names follow the reference's torch modules (networks/
 resnet_encoder.py:12-91, a torchvision ResNet under `.encoder`: `conv1`,
 `bn1`, `layer1.0.conv1`, `layer2.0.downsample.0/1`, ...), so a published
-`encoder.pth` / `pose_encoder.pth` loads with `load_state_dict`. Inputs are
-NCHW (a channels-last view of the NHWC images is fine).
+`encoder.pth` / `pose_encoder.pth` or a torchvision ImageNet file loads with
+`load_state_dict` once its classifier (`fc.*`) is dropped
+(models/torch_import.py). Inputs are NCHW (a channels-last view of the NHWC
+images is fine).
 
 BatchNorm keeps the JAX package's numbers: momentum 0.1 here is flax's 0.9,
 statistics are reduced in float32 whatever the compute dtype, and the
@@ -15,7 +18,7 @@ take the unbiased one).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -68,25 +71,72 @@ class BasicBlock(nn.Module):
         return F.relu(y + identity)
 
 
-class ResNet(nn.Module):
-    """The torchvision ResNet-18 trunk the reference taps (no pool/fc head)."""
+class Bottleneck(nn.Module):
+    """ResNet-50+ block: 1x1 -> 3x3 (stride) -> 1x1 (x4), torchvision v1.5
+    stride placement (the stride on the 3x3)."""
 
-    def __init__(self, in_channels: int = 3):
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.bn2 = BatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = BatchNorm2d(planes * 4)
+        self.downsample: Optional[nn.Sequential] = None
+        if stride != 1 or inplanes != planes * 4:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(inplanes, planes * 4, 1, stride, bias=False), BatchNorm2d(planes * 4)
+            )
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return F.relu(y + identity)
+
+
+#: block type and blocks per layer of each depth (torchvision's table)
+_LAYER_SPECS = {
+    18: (BasicBlock, (2, 2, 2, 2)),
+    34: (BasicBlock, (3, 4, 6, 3)),
+    50: (Bottleneck, (3, 4, 6, 3)),
+    101: (Bottleneck, (3, 4, 23, 3)),
+    152: (Bottleneck, (3, 8, 36, 3)),
+}
+
+
+def encoder_channels(num_layers: int) -> Tuple[int, ...]:
+    """Feature channels of the 5 taps; reference
+    networks/resnet_encoder.py:63,88 ((64, 64, 128, 256, 512), x4 above 34)."""
+    base = (64, 64, 128, 256, 512)
+    if num_layers > 34:
+        return (base[0],) + tuple(c * 4 for c in base[1:])
+    return base
+
+
+class ResNet(nn.Module):
+    """The torchvision ResNet trunk the reference taps (no pool/fc head)."""
+
+    def __init__(self, num_layers: int = 18, in_channels: int = 3):
+        super().__init__()
+        if num_layers not in _LAYER_SPECS:
+            raise ValueError(f"no ResNet-{num_layers}; known: {sorted(_LAYER_SPECS)}")
+        block, counts = _LAYER_SPECS[num_layers]
+        expansion = 4 if block is Bottleneck else 1
         self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64)
         inplanes = 64
-        for li, w in enumerate((64, 128, 256, 512), start=1):
+        for li, (w, n) in enumerate(zip((64, 128, 256, 512), counts), start=1):
             blocks = []
-            for bi in range(2):  # ResNet-18: two blocks per layer
+            for bi in range(n):
                 stride = 2 if (bi == 0 and li > 1) else 1
-                blocks.append(BasicBlock(inplanes, w, stride))
-                inplanes = w
+                blocks.append(block(inplanes, w, stride))
+                inplanes = w * expansion
             setattr(self, f"layer{li}", nn.Sequential(*blocks))
-
-
-#: feature channels of the 5 taps (reference resnet_encoder.py:63)
-NUM_CH_ENC = (64, 64, 128, 256, 512)
 
 
 class ResnetEncoder(nn.Module):
@@ -95,13 +145,8 @@ class ResnetEncoder(nn.Module):
 
     def __init__(self, num_layers: int = 18, num_input_images: int = 1):
         super().__init__()
-        if num_layers != 18:
-            raise NotImplementedError(
-                f"ResNet-{num_layers} is not ported yet (ROADMAP.md, next slice 6: "
-                "the other zoos); the md2 main path uses ResNet-18"
-            )
-        self.num_ch_enc = NUM_CH_ENC
-        self.encoder = ResNet(3 * num_input_images)
+        self.num_ch_enc = encoder_channels(num_layers)
+        self.encoder = ResNet(num_layers, 3 * num_input_images)
 
     def forward(self, x: torch.Tensor):
         e = self.encoder

@@ -1,5 +1,6 @@
 """Image resizing, the counterpart of `baseboostdepth_tpu/ops/resize.py`:
-bilinear (F.interpolate parity), nearest 2x upsample, and the Lanczos
+bilinear (F.interpolate parity, half-pixel and align_corners=True), nearest
+2x upsample, and the Lanczos
 pyramid that replaces the reference's host-side PIL cascade
 (mono_dataset.py:187-204).
 
@@ -33,6 +34,16 @@ def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
         x.permute(0, 3, 1, 2), size=(height, width), mode="bilinear", align_corners=False
     )
     return y.permute(0, 2, 3, 1)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Bilinear NCHW resize with align_corners=True (endpoints map to
+    endpoints), as the SQLdepth BN decoder's F.interpolate
+    (networksSQL/resnet_encoder.py:108). The size it already has is
+    returned as it is, as the JAX function does."""
+    if tuple(x.shape[-2:]) == (height, width):
+        return x
+    return F.interpolate(x, size=(height, width), mode="bilinear", align_corners=True)
 
 
 def _lanczos3(x: np.ndarray) -> np.ndarray:

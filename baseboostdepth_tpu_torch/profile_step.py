@@ -2,10 +2,15 @@
 
     python -m baseboostdepth_tpu_torch.profile_step [--stage late_F7|early_F2|both] [--steps 2]
         [--photo_impl xla|fused] [--warp_impl auto|corner|pallas] [--float_frames]
+        [--zoo md2|cadepth|sql|sql_large] [--num_layers 18] [--merged_warp auto|true|false]
+        [--pose_input_scale 1.0]
 
 Builds the main path as chip_smoke.py does (md2 ResNet-18, 640x192, batch
 12, bf16 networks, random weights from seed 0, synthetic uint8 frames, pose
-head biased to KITTI-scale motion), runs two warm-up steps, then traces
+head biased to KITTI-scale motion), or another zoo or option of the step
+(`--zoo`, md2's `--num_layers`, the warp schedule `--merged_warp`, auto as
+ModelConfig resolves it: two calls for cadepth, merged otherwise; sql runs
+scale 0 only, as its trainer does), runs two warm-up steps, then traces
 `--steps` steps with torch.profiler and prints, per stage, one JSON line:
 wall ms/step (synchronized host clock), device busy ms/step (the sum of
 kernel times), the idle share, device time by kernel class, the top
@@ -27,6 +32,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from baseboostdepth_tpu_torch.config import ModelConfig
 from baseboostdepth_tpu_torch.models.pose import realistic_pose_bias_
 from baseboostdepth_tpu_torch.training.batch import synthetic_batch
 from baseboostdepth_tpu_torch.training.step import (
@@ -76,6 +82,8 @@ def _device_us(evt) -> float:
 
 
 def profile_stage(stage: str, steps: int, float_frames: bool = False, **options) -> dict:
+    if options.get("zoo") in ("sql", "sql_large"):
+        options["scales"] = (0,)
     st = main_path_static(stage, **options)
     state = init_state(st, seed=0, device="cuda", steps_per_epoch=3317)
     realistic_pose_bias_(state.pose_net)
@@ -109,7 +117,9 @@ def profile_stage(stage: str, steps: int, float_frames: bool = False, **options)
         classes[cls] = classes.get(cls, 0.0) + us / 1e3 / steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     return {
-        "stage": stage, "F": st.F, "scales": list(st.scales), "steps_traced": steps,
+        "stage": stage, "zoo": st.zoo, "num_layers": st.num_layers,
+        "merged_warp": st.merged_warp, "pose_input_scale": st.pose_input_scale,
+        "F": st.F, "scales": list(st.scales), "steps_traced": steps,
         "photo_impl": st.photo_impl, "warp_impl": st.warp_impl, "float_frames": float_frames,
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
@@ -128,7 +138,13 @@ def main(argv=None) -> int:
     ap.add_argument("--warp_impl", choices=["auto", "corner", "pallas"], default="auto")
     ap.add_argument("--float_frames", action="store_true",
                     help="feed float32 frames (uint8 / 255): the float-planes warp")
+    ap.add_argument("--zoo", choices=["md2", "cadepth", "sql", "sql_large"], default="md2")
+    ap.add_argument("--num_layers", type=int, default=18, help="md2's ResNet depth")
+    ap.add_argument("--merged_warp", choices=["auto", "true", "false"], default="auto")
+    ap.add_argument("--pose_input_scale", type=float, default=1.0)
     args = ap.parse_args(argv)
+    merged = ModelConfig(zoo=args.zoo, merged_warp=None if args.merged_warp == "auto"
+                         else args.merged_warp == "true").resolved_merged_warp()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA device")
     card = subprocess.run(
@@ -139,7 +155,9 @@ def main(argv=None) -> int:
     stages = list(MAIN_PATH_STAGES) if args.stage == "both" else [args.stage]
     for stage in stages:
         out = profile_stage(stage, args.steps, float_frames=args.float_frames,
-                            photo_impl=args.photo_impl, warp_impl=args.warp_impl)
+                            photo_impl=args.photo_impl, warp_impl=args.warp_impl, zoo=args.zoo,
+                            num_layers=args.num_layers, merged_warp=merged,
+                            pose_input_scale=args.pose_input_scale)
         out["card"] = card
         print(json.dumps(out))
         torch.cuda.empty_cache()

@@ -7,10 +7,14 @@ all shapes static per curriculum stage (StepStatic), every pose pair the
 stage needs stacked into ONE pose-net call, chained poses for incremental
 stages (negative offsets chained properly), partial replacement as a masked
 column splice, error-induced poses from the chained estimate before partial
-replacement, and the main-slot and error-pose warps merged into one warp
-call over 2S-1 slots (the JAX package's default; its two-call schedule and
-pose_input_scale options are not ported: ModelConfig keeps them as
-configuration only).
+replacement. The main-slot and error-pose warps run as one warp call over
+2S-1 slots (merged_warp=True, the JAX package's default) or as two calls,
+the main slots and then the error poses (merged_warp=False, the two-call
+schedule; loss- and gradient-exact against the merged one). With
+pose_input_scale != 1 the pose network sees the pairs bilinearly resized
+(half-pixel, no antialiasing) to round(H*s/32)*32 x round(W*s/32)*32.
+Zoos in DEPTH_IS_METRIC (SQLdepth) output metric depth, which the step
+uses as depth; the others' disparities go through disp_to_depth.
 
 Two kernel options, with the JAX package's names and defaults:
 warp_impl "auto" / "corner" (the corner-plane warp) or "pallas" (the packed
@@ -28,7 +32,8 @@ pair of ops/warp_planes.py whatever warp_impl says, as in the JAX step).
 
 PyTorch idiom: the networks are nn.Modules that hold their parameters and
 BatchNorm buffers, the train step updates them in place, and the automask
-noise comes from an explicit torch.Generator (or is passed in). Under
+noise, like the SQL head's dropout masks, comes from an explicit
+torch.Generator (the noise may be passed in instead). Under
 dtype="bfloat16" only the depth and pose networks run under autocast;
 disparity sigmoids, the pose mean, geometry, the warp and the losses stay
 float32.
@@ -76,6 +81,10 @@ class StepStatic:
     dtype: str = "float32"
     warp_impl: str = "auto"  # auto | corner | pallas (ops/sampling.py::resolve_warp)
     photo_impl: str = "xla"  # xla | fused (ops/ssim.py::reprojection_loss)
+    # the pose network on pairs resized by this factor (1.0 = the reference)
+    pose_input_scale: float = 1.0
+    # main-slot and error-pose warps in one call (True) or two (False)
+    merged_warp: bool = True
 
     @property
     def metric_depth(self) -> bool:
@@ -93,9 +102,11 @@ MAIN_PATH_STAGES = {
 def main_path_static(stage: str, dtype: str = "bfloat16", **options) -> StepStatic:
     """StepStatic of one main-path stage at the published 640x192 width:
     md2 ResNet-18, tri-min + decomp, pose_error 5.5. `options` sets other
-    fields, e.g. warp_impl="pallas", photo_impl="fused"."""
-    return StepStatic(zoo="md2", num_layers=18, trimin=True, decomp=True, pose_error=5.5,
-                      dtype=dtype, **MAIN_PATH_STAGES[stage], **options)
+    fields, the stage's too, e.g. warp_impl="pallas", photo_impl="fused",
+    or zoo="sql", scales=(0,)."""
+    fields = dict(zoo="md2", num_layers=18, trimin=True, decomp=True, pose_error=5.5,
+                  dtype=dtype, **MAIN_PATH_STAGES[stage])
+    return StepStatic(**{**fields, **options})
 
 
 @dataclasses.dataclass
@@ -256,9 +267,17 @@ def slot_poses(st, aa, t, slot_offset, slot_partial):
 def init_disp_bias(depth_net: nn.Module, value: float) -> None:
     """Set every disparity-head conv bias to `value` (a sigmoid logit); the
     cold-start aid of the JAX package's init_disp_bias, off unless
-    configured."""
-    for head in depth_net.decoder.decoder[10:]:
-        head.conv.bias.fill_(value)
+    configured. SQLdepth has no disparity heads: nothing changes."""
+    for conv in depth_net.dispconvs():
+        conv.bias.fill_(value)
+
+
+def _depth_of(st: StepStatic, disp: torch.Tensor) -> torch.Tensor:
+    """Depth from the depth network's output: SQLdepth's is metric depth
+    already, the other zoos' disparities go through disp_to_depth."""
+    if st.metric_depth:
+        return disp
+    return geometry.disp_to_depth(disp, st.min_depth, st.max_depth)[1]
 
 
 def _autocast(st: StepStatic, device: torch.device):
@@ -292,8 +311,12 @@ def predict_poses(st, pose_net, aug, slot_offset, slot_partial):
         pairs = torch.cat([pairs, torch.cat([lhs, rhs], dim=-1)], dim=1)
 
     P = pairs.shape[1]
+    flat = pairs.reshape(B * P, H, W, 6)
+    if st.pose_input_scale != 1.0:
+        flat = resize_bilinear(flat, int(round(H * st.pose_input_scale / 32)) * 32,
+                               int(round(W * st.pose_input_scale / 32)) * 32)
     with _autocast(st, aug.device):
-        aa, t = pose_net(pairs.reshape(B * P, H, W, 6))
+        aa, t = pose_net(flat)
     aa = aa.reshape(B, P, 3).float()
     t = t.reshape(B, P, 3).float()
     return slot_poses(st, aa, t, slot_offset, slot_partial)
@@ -338,7 +361,7 @@ def loss_forward(
     depth_net.train(train)
     pose_net.train(train)
     with _autocast(st, device):
-        disps = depth_net(aug[:, F])
+        disps = depth_net(aug[:, F], generator=generator)
 
     T_slot, T_err = predict_poses(st, pose_net, aug, batch["slot_offset"], batch["slot_partial"])
 
@@ -383,9 +406,9 @@ def loss_forward(
     for s in st.scales:
         disp = disps[s]  # decoder returns all four scales, finest first
         disp_full = disp if disp.shape[1:3] == (H, W) else resize_bilinear(disp, H, W)
-        _, depth = geometry.disp_to_depth(disp_full[..., 0], st.min_depth, st.max_depth)
+        depth = _depth_of(st, disp_full[..., 0])
 
-        if T_err is not None:
+        if T_err is not None and st.merged_warp:
             # one merged warp call: error slot i reuses main slot i's source
             # (T_err has S-1 slots)
             S_main, S_err = T_slots.shape[1], T_err.shape[1]
@@ -398,6 +421,8 @@ def loss_forward(
         else:
             warped = warp_all(depth, T_slots, warp_src)
             warped_e = None
+            if T_err is not None:  # the two-call schedule
+                warped_e = warp_all(depth, T_err, warp_src[:, : T_err.shape[1]])
         warp_l = photo_losses(warped, slot_valid)
 
         err_l = None
@@ -407,6 +432,8 @@ def loss_forward(
         min_l = losses.min_reprojection(warp_l, ident_l, noise, err_l)
         loss_s = torch.mean(min_l)
 
+        # SQL's head emits at H/2: upsampled before the smoothness term
+        # (reference trainer.py:558-559)
         if st.smooth_weight:
             ps = pyramid[s]
             disp_sm = disp if disp.shape[1:3] == ps.shape[1:3] else resize_bilinear(
@@ -484,7 +511,7 @@ def make_debug_forward(st: StepStatic, device="cuda"):
         disp_full = disp0 if disp0.shape[1:3] == (H, W) else resize_bilinear(disp0, H, W)
         T_slot, T_err = predict_poses(st, pose_net, color, tb["slot_offset"], tb["slot_partial"])
         T_slots = torch.cat([T_slot, tb["stereo_T"][:, None]], dim=1)
-        _, depth = geometry.disp_to_depth(disp_full[..., 0], st.min_depth, st.max_depth)
+        depth = _depth_of(st, disp_full[..., 0])
 
         B = color.shape[0]
         S = T_slots.shape[1]
@@ -530,10 +557,11 @@ def make_debug_forward(st: StepStatic, device="cuda"):
 
 def make_eval_forward(st: StepStatic, device="cuda"):
     """Build eval_fn(depth_net, images [B, H, W, 3] float in [0, 1]) ->
-    full-resolution depth [B, H, W] float32 on `device`: the val()/evaluate
-    path, disp_0 -> disp_to_depth (reference trainer.py:299-307); the
-    counterpart of the JAX package's make_eval_forward. The network runs in
-    eval mode without gradients."""
+    depth [B, h, w] float32 on `device`: the val()/evaluate path, disp_0 ->
+    disp_to_depth (reference trainer.py:299-307), at full resolution; for
+    SQLdepth its metric depth as it comes, at H/2 (the caller resizes to the
+    GT). The counterpart of the JAX package's make_eval_forward. The
+    network runs in eval mode without gradients."""
     device = require_device(device)
 
     @torch.no_grad()
@@ -542,7 +570,6 @@ def make_eval_forward(st: StepStatic, device="cuda"):
         depth_net.eval()
         with _autocast(st, device):
             disps = depth_net(x)
-        _, depth = geometry.disp_to_depth(disps[0].float()[..., 0], st.min_depth, st.max_depth)
-        return depth
+        return _depth_of(st, disps[0].float()[..., 0])
 
     return eval_fn

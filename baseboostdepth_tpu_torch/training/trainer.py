@@ -14,10 +14,13 @@ a resumed run replays the stream of an uninterrupted one.
 With `log.syns_val` it also runs the SYNS val split (edge metrics) at every
 log step (trainer.py:646-663).
 
-Not ported yet, and refused with NotImplementedError rather than ignored
-(see `check_supported`): multi-process training, pretrained encoder
-weights, zoos other than md2 ResNet-18, the two-call warp
-(merged_warp=False) and pose_input_scale != 1.
+Zoos: md2 (ResNet-18/34/50/101/152), cadepth and sql / sql_large, with
+`model.merged_warp`, `model.pose_input_scale` and `model.weights_init
+pretrained` (ImageNet ResNets from `model.pretrained_path` or torchvision's
+files, models/torch_import.py). Not ported yet, and refused with
+NotImplementedError rather than ignored (see `check_supported`):
+multi-process training (ROADMAP.md, A6) and the monovit and diffnet zoos
+(A5).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from baseboostdepth_tpu_torch.data.loader import EvalLoader, KittiTrainLoader
 from baseboostdepth_tpu_torch.device import require_device
 from baseboostdepth_tpu_torch.evaluation.metrics import METRIC_NAMES, single_image_errors
 from baseboostdepth_tpu_torch.evaluation.syns import evaluate_syns
+from baseboostdepth_tpu_torch.models import DEPTH_IS_METRIC
 from baseboostdepth_tpu_torch.training.checkpoint import CheckpointManager
 from baseboostdepth_tpu_torch.training.step import (
     StepStatic,
@@ -56,16 +60,9 @@ def check_supported(cfg: Config) -> None:
     yet, instead of training something else than asked."""
     unported = []
     if cfg.dist.enabled:
-        unported.append("dist.enabled (multi-GPU training)")
-    if cfg.model.weights_init == "pretrained":
-        unported.append("model.weights_init='pretrained' (encoder import)")
-    if cfg.model.zoo != "md2" or cfg.model.num_layers != 18:
-        unported.append(f"model.zoo={cfg.model.zoo!r} num_layers={cfg.model.num_layers} "
-                        "(only md2 ResNet-18 is ported)")
-    if not cfg.model.resolved_merged_warp():
-        unported.append("model.merged_warp=False (the two-call warp schedule)")
-    if cfg.model.pose_input_scale != 1.0:
-        unported.append(f"model.pose_input_scale={cfg.model.pose_input_scale}")
+        unported.append("dist.enabled (multi-GPU training, A6)")
+    if cfg.model.zoo in ("monovit", "diffnet"):
+        unported.append(f"model.zoo={cfg.model.zoo!r} (A5)")
     if unported:
         raise NotImplementedError(
             "not ported to baseboostdepth_tpu_torch yet (see ROADMAP.md, 'Open items'): "
@@ -194,6 +191,8 @@ class Trainer:
         )
         if cfg.method.disp_init_bias is not None:
             init_disp_bias(self.state.depth_net, cfg.method.disp_init_bias)
+        if cfg.model.weights_init == "pretrained":
+            self._load_pretrained()
 
         self.ckpt = CheckpointManager(os.path.join(self.log_path, "checkpoints"))
         self.start_epoch = 0
@@ -224,6 +223,32 @@ class Trainer:
         self._eval_fns: Dict[object, object] = {}
         self.logger = MetricLogger(self.log_path, cfg.log.wandb, cfg.to_dict())
 
+    def _load_pretrained(self) -> None:
+        """ImageNet encoders (the JAX trainer's pretrained branch): an explicit
+        model.pretrained_path as given, else torchvision's resnet file for the
+        zoo's depth encoder, as the reference fetches it implicitly
+        (networks/resnet_encoder.py:46-53); the pose encoder from a
+        ResNet-18 file wherever the depth encoder is not one."""
+        from baseboostdepth_tpu_torch.models.torch_import import load_pretrained_encoder
+        from baseboostdepth_tpu_torch.utils import download
+
+        zoo = self.cfg.model.zoo
+        depth_layers = {"md2": self.cfg.model.num_layers, "sql": 50, "sql_large": 50,
+                        "cadepth": 50}
+        depth_path = self.cfg.model.pretrained_path
+        if depth_path is None:
+            if zoo not in depth_layers:
+                raise SystemExit(
+                    f"--model.weights_init pretrained for zoo {zoo!r} needs "
+                    "--model.pretrained_path (mpvit_small.pth / hrnet18 ImageNet weights "
+                    "have no stable public URL; see utils/download.py)")
+            depth_path = download.fetch_torchvision_resnet(depth_layers[zoo])
+        pose_path = None
+        if depth_layers[zoo] != 18:  # the pose pair is always a ResNet-18
+            pose_path = download.fetch_torchvision_resnet(18)
+        load_pretrained_encoder(self.state.depth_net, self.state.pose_net, depth_path, zoo,
+                                pose_path=pose_path)
+
     # ------------------------------------------------------------------
     def _static_for_stage(self, stage: Stage) -> StepStatic:
         m, cfg = self.cfg.method, self.cfg
@@ -231,9 +256,12 @@ class Trainer:
             zoo=cfg.model.zoo, num_layers=cfg.model.num_layers, height=cfg.data.height,
             width=cfg.data.width, use_ssim=not m.no_ssim, min_depth=m.min_depth,
             max_depth=m.max_depth, smooth_weight=m.disparity_smoothness, dtype=cfg.model.dtype,
+            pose_input_scale=cfg.model.pose_input_scale,
+            merged_warp=cfg.model.resolved_merged_warp(),
         )
         if not m.curriculum:
-            return StepStatic(F=1, scales=tuple(m.scales), trimin=False, incremental=False,
+            scales = (0,) if cfg.model.zoo in DEPTH_IS_METRIC else tuple(m.scales)
+            return StepStatic(F=1, scales=scales, trimin=False, incremental=False,
                               partial=False, decomp=False, **common)
         return StepStatic(
             F=stage.F, scales=tuple(stage.scales), trimin=m.trimin,
@@ -284,7 +312,8 @@ class Trainer:
         """One epoch; False when a signal asked the run to stop."""
         cfg = self.cfg
         global_step = self.state.step
-        stage = stage_for_epoch(epoch, cfg.method.trimin, cfg.method.curriculum_switch_epoch)
+        stage = stage_for_epoch(epoch, cfg.method.trimin, cfg.method.curriculum_switch_epoch,
+                                sql=cfg.model.zoo in DEPTH_IS_METRIC)
         st = self._static_for_stage(stage)
         step_fn = self._step_fn(st)
         # frame-budget buckets clipped to this stage (e.g. (2, 5, 7) late,

@@ -45,13 +45,18 @@ In order, it
      these shapes);
   7. checks the step on a small input against the same step on the CPU,
      with the default options, with photo_impl="fused", warp_impl="pallas",
-     and with float frames;
+     with float frames, with md2 ResNet-50, with CADepth (the two-call warp
+     schedule) and with SQLdepth (128x512, dropout off);
   8. trains the md2 main path at full width (640x192, batch 12, bf16
      networks): 3 steps of the late stage (F=7, scale 0, tri-min +
      incremental + partial + decomp, merged warp) and 2 of the early stage
      (F=2, scales 0-3, direct poses), with the default options, with
      photo_impl="fused", warp_impl="pallas", and with float frames (the
-     float-planes warp); finite losses, moving parameters and BN
+     float-planes warp); then the same two stages with md2 ResNet-50, with
+     CADepth at its default two-call warp schedule (two corner_sweep
+     launches a scale; the late stage also with the fused and packed
+     kernels) and with SQLdepth (scale 0 only), and the late stage with
+     pose_input_scale=0.5; finite losses, moving parameters and BN
      statistics, and every kernel's launches counted in each run and held
      to the counts the step's structure implies;
   9. writes KITTI-raw, SYNS and KITTI-odometry trees of random images at
@@ -59,7 +64,8 @@ In order, it
      test and val), and runs the training entry point (cli.train): one
      epoch at the default configuration, ending in a checkpoint, then again
      with two epochs, which must resume from it, then a third epoch with
-     SYNS validation and image panels on; prints which JPEG decoder the
+     SYNS validation and image panels on; one epoch each of
+     --model.zoo cadepth and --model.zoo sql; prints which JPEG decoder the
      loader took (the native one where g++ and libjpeg build it, else PIL),
      times the loader alone with each decoder available, and holds every
      batch of an epoch that the trainer's device prefetcher sends to the
@@ -67,7 +73,8 @@ In order, it
  10. runs the evaluation and inference entry points on that checkpoint:
      cli.evaluate_depth (eigen mono with --save_pred_disps, then
      --ext_disp_to_eval on the saved stack, which must reproduce it
-     exactly; --post_process; --stereo; SYNS with --chamfer at full SYNS
+     exactly; the same on the sql checkpoint, whose stack is metric depth
+     at H/2; --post_process; --stereo; SYNS with --chamfer at full SYNS
      size), cli.evaluate_pose, cli.infer on a folder and cli.visualize;
      times predict_disparities and the chamfer search, and holds the card's
      chamfer distances against the CPU's;
@@ -98,6 +105,13 @@ PROBE_KERNELS = ("probe_scale", "probe_gather_rows", "probe_gather_cols", "probe
 KERNELS = ("corner_sweep", "ssim_fused_fwd", "ssim_fused_bwd", "warp_packed_fwd",
            "warp_packed_bwd", "warp_planes_fwd", "warp_planes_bwd", *PROBE_KERNELS)
 FUSED = dict(photo_impl="fused", warp_impl="pallas")
+# the zoos and options beside md2 ResNet-18's defaults, as StepStatic fields:
+# cadepth at its default, the two-call warp schedule; sql at scale 0 only,
+# as its trainer runs it
+RN50 = dict(num_layers=50)
+CADEPTH = dict(zoo="cadepth", merged_warp=False)
+SQL = dict(zoo="sql", scales=(0,))
+POSE_HALF = dict(pose_input_scale=0.5)
 
 # float32 operations per pixel, counted in the kernels' source (adds,
 # multiplies, divides, compares; an FMA counts 2; index arithmetic not
@@ -1115,18 +1129,25 @@ def as_float_frames(torch, batch):
     return dict(batch, frames=batch["frames"].to(torch.float32) / 255.0)
 
 
-def parity_phase(torch, float_frames=False, **options):
+def parity_phase(torch, float_frames=False, height=64, width=128, **options):
     """The step on a small input, on the card (kernels) and on the CPU (plain
-    versions), fp32 with TF32 off: the losses must agree."""
+    versions), fp32 with TF32 off: the losses must agree. `options` set
+    StepStatic fields (a zoo, md2's num_layers, merged_warp, the kernel
+    options); SQLdepth's dropout is off, since the card's and the CPU's
+    generators draw different masks."""
     from baseboostdepth_tpu_torch.training.batch import synthetic_batch
     from baseboostdepth_tpu_torch.training.step import StepStatic, init_state, loss_forward
 
-    st = StepStatic(height=64, width=128, F=2, scales=(0, 1, 2, 3), dtype="float32", **options)
-    batch = synthetic_batch(2, batch=2, height=64, width=128, seed=5)
-    noise = torch.randn((2, 1, 64, 128), generator=torch.Generator().manual_seed(5)) * 1e-5
+    fields = dict(height=height, width=width, F=2, scales=(0, 1, 2, 3), dtype="float32")
+    st = StepStatic(**{**fields, **options})
+    batch = synthetic_batch(2, batch=2, height=height, width=width, seed=5)
+    noise = torch.randn((2, 1, height, width), generator=torch.Generator().manual_seed(5)) * 1e-5
     losses = {}
     for dev in ("cuda", "cpu"):
         state = init_state(st, seed=3, device=dev)
+        for m in state.depth_net.modules():
+            if hasattr(m, "dropout_rate"):
+                m.dropout_rate = 0.0
         tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         if float_frames:
             tb = as_float_frames(torch, tb)
@@ -1140,28 +1161,32 @@ def parity_phase(torch, float_frames=False, **options):
                                                            "default options")
     check(rel <= 1e-4, f"small-input loss {label} on the card {losses['cuda']} vs CPU "
                        f"{losses['cpu']}")
-    print(f"parity check {label}: 64x128 step loss card "
+    print(f"parity check {label}: {height}x{width} step loss card "
           f"{losses['cuda']:.7f} vs CPU {losses['cpu']:.7f} (rel {rel:.2e})")
 
 
 def expected_launches(st, float_frames=False) -> dict:
     """Kernel launches per step that the step's structure implies. Per loss
-    scale the merged warp is one warp call, and the main-slot and
-    error-pose photometric losses are one call each; the identity
-    candidates' loss is one call per step. Gradients reach the warped
-    images only (the identity candidates are raw frames), so each warp and
-    each loss call but the identity one runs its backward once. Float
-    frames take the float-planes warp whatever warp_impl says."""
+    scale the main slots and the error poses (decomp under tri-min) are one
+    merged warp call, or two under the two-call schedule
+    (merged_warp=False), and the main-slot and error-pose photometric
+    losses are one call each; the identity candidates' loss is one call per
+    step. Gradients reach the warped images only (the identity candidates
+    are raw frames), so each warp and each loss call but the identity one
+    runs its backward once. Float frames take the float-planes warp
+    whatever warp_impl says."""
     S = len(st.scales)
+    per_scale = 2 if st.decomp and st.trimin else 1  # candidate sets: main (+ error)
+    warps = S * (1 if st.merged_warp else per_scale)
     counts = dict.fromkeys(KERNELS, 0)
     if float_frames:
-        counts.update(warp_planes_fwd=S, warp_planes_bwd=S)
+        counts.update(warp_planes_fwd=warps, warp_planes_bwd=warps)
     elif st.warp_impl == "pallas":
-        counts.update(warp_packed_fwd=S, warp_packed_bwd=S)
+        counts.update(warp_packed_fwd=warps, warp_packed_bwd=warps)
     else:
-        counts.update(corner_sweep=S)
+        counts.update(corner_sweep=warps)
     if st.photo_impl == "fused" and st.use_ssim:
-        counts.update(ssim_fused_fwd=1 + 2 * S, ssim_fused_bwd=2 * S)
+        counts.update(ssim_fused_fwd=1 + per_scale * S, ssim_fused_bwd=per_scale * S)
     return counts
 
 
@@ -1473,6 +1498,49 @@ def trainer_phase(torch, card, step_ms, root):
             "prefetched_batches_equal": n_prefetched}
 
 
+def zoo_trainer_phase(torch, card, root):
+    """One short epoch (epoch 0: F=2, 4 steps, a metrics line at batch 2,
+    ending in a checkpoint) of cli.train with --model.zoo cadepth (its
+    default two-call warp schedule, 4 loss scales: 8 corner_sweep launches
+    a step) and with --model.zoo sql (scale 0 only: 1 a step), at the
+    trainer phase's configuration and trees; the sql checkpoint is the eval
+    phase's metric-depth case."""
+    from baseboostdepth_tpu_torch.cli import train as cli
+
+    per_step = {"cadepth": 8, "sql": 1}
+    launches, walls = dict.fromkeys(KERNELS, 0), {}
+    for zoo, n in per_step.items():
+        argv = ["--data.kt_path", os.path.join(root, "raw"),
+                "--data.splits_dir", os.path.join(root, "splits"),
+                "--log.log_dir", os.path.join(root, "logs"), "--log.model_name", f"smoke_{zoo}",
+                "--log.log_frequency", "2", "--log.image_panels", "False",
+                "--optim.num_epochs", "1", "--model.zoo", zoo]
+        reset_launches()
+        t0 = time.perf_counter()
+        tr = cli.main(argv, device="cuda")
+        torch.cuda.synchronize()
+        walls[zoo] = time.perf_counter() - t0
+        got = read_launches()
+        steps = tr.state.step
+        check(steps == tr.steps_per_epoch == 4, f"trainer {zoo}: {steps} steps")
+        check(tr.ckpt.latest_step() == steps, f"trainer {zoo}: no checkpoint at the epoch's end")
+        expect = dict.fromkeys(KERNELS, 0)
+        expect["corner_sweep"] = n * steps
+        check(got == expect, f"trainer {zoo}: kernel launches {got}, expected {expect}")
+        with open(os.path.join(root, "logs", f"smoke_{zoo}", "metrics.jsonl")) as f:
+            logged = [json.loads(ln) for ln in f]
+        check(len(logged) == 1 and np.isfinite(logged[0]["loss"]),
+              f"trainer {zoo}: metrics lines {logged}")
+        for k in KERNELS:
+            launches[k] += got[k]
+        print(f"trainer {zoo}: one epoch of cli.train, {steps} steps, loss at batch 2 "
+              f"{logged[0]['loss']:.6f}, {got['corner_sweep']} corner_sweep launches; "
+              f"wall clock {walls[zoo]:.2f} s (networks' init, loader, checkpoint) [{card}]")
+        del tr
+        torch.cuda.empty_cache()
+    return {"launches": launches, "wall_s": walls}
+
+
 def finite_metrics(what, result: dict) -> dict:
     check(result and all(np.isfinite(v) for v in result.values()), f"{what}: metrics {result}")
     return result
@@ -1525,6 +1593,18 @@ def eval_phase(torch, card, root):
     check(np.load(saved).shape[0] == N_EVAL, "saved disparities' count")
     ext = timed("ext_disp", lambda: evaluate_depth.main(base + ["--ext_disp_to_eval", saved]))
     check(ext == mono, f"--ext_disp_to_eval {ext} differs from the live metrics {mono}")
+    # the metric-depth path: the sql checkpoint of zoo_trainer_phase, whose
+    # saved stack is metric depth at H/2, scored without inversion
+    sql_base = ["--config", os.path.join(root, "logs", "smoke_sql", "config.json"),
+                "--checkpoint", os.path.join(root, "logs", "smoke_sql", "checkpoints")]
+    saved_sql = os.path.join(root, "depths_sql.npy")
+    sql_mono = finite_metrics("eigen mono, sql", timed("eigen_mono_sql", lambda: evaluate_depth.main(
+        sql_base + ["--save_pred_disps", saved_sql])))
+    sql_depths = np.load(saved_sql)
+    check(sql_depths.shape == (N_EVAL, H // 2, W // 2) and (sql_depths > 0).all(),
+          f"sql saved depths {sql_depths.shape}")
+    sql_ext = evaluate_depth.main(sql_base + ["--ext_disp_to_eval", saved_sql])
+    check(sql_ext == sql_mono, f"sql --ext_disp_to_eval {sql_ext} differs from {sql_mono}")
     pp = finite_metrics("eigen post_process", timed("eigen_pp", lambda: evaluate_depth.main(
         base + ["--post_process"])))
     stereo = finite_metrics("eigen stereo", timed("eigen_stereo", lambda: evaluate_depth.main(
@@ -1609,7 +1689,9 @@ def eval_phase(torch, card, root):
     check(cham_d2_err <= d2_bound, f"chamfer card vs CPU: squared distances {cham_d2_err} apart "
                                    f"(bound {d2_bound})")
 
-    print(f"eval: eigen mono {json.dumps(mono)}; post_process abs_rel {pp['abs_rel']:.4f}; "
+    print(f"eval: eigen mono {json.dumps(mono)}; sql (metric depth at {H // 2}x{W // 2}) eigen "
+          f"mono {json.dumps(sql_mono)}, --ext_disp_to_eval equal; "
+          f"post_process abs_rel {pp['abs_rel']:.4f}; "
           f"stereo abs_rel {stereo['abs_rel']:.4f}; --ext_disp_to_eval equal to the live run; "
           f"SYNS {json.dumps(syns)}; odometry {json.dumps(ates)}; infer wrote {len(written)} "
           f"files; visualize wrote {os.path.getsize(video)} B")
@@ -1635,6 +1717,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False  # fp32 convs of the parity phase in full fp32
     torch.cuda.set_device(0)
@@ -1663,6 +1746,9 @@ def main() -> int:
     parity_phase(torch)
     parity_phase(torch, **FUSED)
     parity_phase(torch, float_frames=True)
+    parity_phase(torch, **RN50)
+    parity_phase(torch, **CADEPTH)
+    parity_phase(torch, height=128, width=512, **SQL)  # the SQL head needs 64 tokens
     runs = {
         "probe_tool": probe_run,
         "late_F7": step_phase(torch, card, "late_F7", steps=3),
@@ -1671,10 +1757,19 @@ def main() -> int:
         "early_F2_fused": step_phase(torch, card, "early_F2", steps=2, **FUSED),
         "late_F7_float": step_phase(torch, card, "late_F7", steps=3, float_frames=True),
         "early_F2_float": step_phase(torch, card, "early_F2", steps=2, float_frames=True),
+        "late_F7_rn50": step_phase(torch, card, "late_F7", steps=3, **RN50),
+        "early_F2_rn50": step_phase(torch, card, "early_F2", steps=2, **RN50),
+        "late_F7_cadepth": step_phase(torch, card, "late_F7", steps=3, **CADEPTH),
+        "early_F2_cadepth": step_phase(torch, card, "early_F2", steps=2, **CADEPTH),
+        "late_F7_cadepth_fused": step_phase(torch, card, "late_F7", steps=3, **CADEPTH, **FUSED),
+        "late_sql": step_phase(torch, card, "late_F7", steps=3, **SQL),
+        "early_sql": step_phase(torch, card, "early_F2", steps=2, **SQL),
+        "late_F7_pose_half": step_phase(torch, card, "late_F7", steps=3, **POSE_HALF),
     }
     steps = {name: {k: r[k] for k in ("ms_per_step", "peak_gb", "loss_rel_vs_uint8") if k in r}
              for name, r in runs.items() if name != "probe_tool"}
-    print(f"steps (default options, {FUSED}, float frames): {json.dumps(steps)} [{card}]")
+    print(f"steps (default options, {FUSED}, float frames, {RN50}, {CADEPTH}, {SQL}, "
+          f"{POSE_HALF}): {json.dumps(steps)} [{card}]")
 
     from baseboostdepth_tpu_torch.cli import export_gt
 
@@ -1694,6 +1789,7 @@ def main() -> int:
               f"odometry ({N_ODOM} frames) written in {write_s:.1f} s; SYNS GT exported "
               f"(test and val) in {export_s:.1f} s")
         runs["trainer"] = trainer_phase(torch, card, runs["early_F2"]["ms_per_step"], root)
+        runs["trainer_zoos"] = zoo_trainer_phase(torch, card, root)
         evals = eval_phase(torch, card, root)
     launches = {n: sum(r["launches"][n] for r in runs.values()) for n in KERNELS}
     check(all(launches.values()), f"a kernel of the path never launched: {launches}")
@@ -1725,6 +1821,8 @@ def main() -> int:
             "launches_by_run": {run: r["launches"][name] for run, r in runs.items()},
         })
     print(f"eval path: {json.dumps(evals)} [{card}]")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start of main to the "
+          "kernels' line")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -187,6 +187,31 @@ def test_evaluate_depth_cli_and_saved_disparities(trained, tmp_path, protocol):
     assert pp.keys() == live.keys() and all(np.isfinite(v) for v in pp.values())
 
 
+def test_evaluate_depth_cli_on_an_sql_checkpoint(trained, tmp_path):
+    """The metric-depth path end to end: evaluate_depth on an SQLdepth
+    checkpoint (128x512, the smallest size its head takes) saves metric
+    depth at H/2, scores it without inverting it (disp_input=False), and
+    --ext_disp_to_eval on the saved stack reproduces the live metrics."""
+    from baseboostdepth_tpu_torch.evaluation.depth import load_gt, score_disparities
+
+    root, config, _ = trained
+    cfg = Config.load(config)
+    cfg.model.zoo, cfg.data.height, cfg.data.width = "sql", 128, 512
+    cfg.save(str(tmp_path / "sql.json"))
+    st = StepStatic(zoo="sql", height=128, width=512, dtype="float32")
+    CheckpointManager(str(tmp_path / "ckpt")).save(1, init_state(st, seed=4, device="cpu"), {})
+    saved = str(tmp_path / "depths.npy")
+    base = ["--config", str(tmp_path / "sql.json"), "--checkpoint", str(tmp_path / "ckpt")]
+    live = evaluate_depth.main(base + ["--save_pred_disps", saved], device="cpu")
+    depths = np.load(saved)
+    assert depths.shape == (4, 64, 256) and (depths > 0).all()
+    assert all(np.isfinite(v) for v in live.values())
+    assert evaluate_depth.main(base + ["--ext_disp_to_eval", saved], device="cpu") == live
+    gt = load_gt(str(root / "splits" / "eigen" / "gt_depths.npz"))
+    assert score_disparities(depths, gt, False, disp_input=False) == live
+    assert score_disparities(depths, gt, False, disp_input=True) != live
+
+
 def test_evaluate_depth_cli_syns_and_pose_cli(trained, tmp_path):
     root, config, ckpt = trained
     syns = evaluate_depth.main(["--config", config, "--checkpoint", ckpt, "--split", "SYNS",

@@ -59,6 +59,9 @@ def test_every_port_module_was_imported(probe):
                  "baseboostdepth_tpu_torch.cli.evaluate_pose",
                  "baseboostdepth_tpu_torch.cli.export_gt", "baseboostdepth_tpu_torch.cli.infer",
                  "baseboostdepth_tpu_torch.cli.visualize",
-                 "baseboostdepth_tpu_torch.tools.pallas_probe"):
+                 "baseboostdepth_tpu_torch.tools.pallas_probe",
+                 "baseboostdepth_tpu_torch.models.cadepth", "baseboostdepth_tpu_torch.models.sql",
+                 "baseboostdepth_tpu_torch.models.torch_import",
+                 "baseboostdepth_tpu_torch.utils.download"):
         assert name in imported
-    assert len(imported) >= 46
+    assert len(imported) >= 50

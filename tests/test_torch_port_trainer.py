@@ -175,11 +175,10 @@ def test_cli_trains_one_epoch_and_resumes(tiny_kitti):
 
 
 # log.syns_val runs since the eval slice (tests/test_torch_port_cli_eval.py::
-# test_trainer_syns_val_logs_syns_metrics); another unported zoo takes its place
+# test_trainer_syns_val_logs_syns_metrics); the five overrides this slice
+# ports run in test_lifted_configuration_builds, and diffnet joins monovit
 @pytest.mark.parametrize("override", [
-    ("dist", "enabled", True), ("model", "weights_init", "pretrained"),
-    ("model", "zoo", "sql"), ("model", "zoo", "monovit"), ("model", "num_layers", 50),
-    ("model", "merged_warp", False), ("model", "pose_input_scale", 0.5),
+    ("dist", "enabled", True), ("model", "zoo", "monovit"), ("model", "zoo", "diffnet"),
 ])
 def test_unported_configuration_raises(tiny_kitti, override):
     data, splits, logs = tiny_kitti
@@ -188,6 +187,90 @@ def test_unported_configuration_raises(tiny_kitti, override):
     setattr(getattr(cfg, sec), field, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, device="cpu")
+
+
+def _resnet_file(path, num_layers, seed=0):
+    """A torchvision ImageNet-layout file (trunk + fc) from a seeded trunk."""
+    from baseboostdepth_tpu_torch.models.resnet import ResNet, init_encoder_, encoder_channels
+
+    gen = torch.Generator().manual_seed(seed)
+    trunk = ResNet(num_layers)
+    init_encoder_(trunk, gen)
+    fc = {"fc.weight": torch.randn(1000, encoder_channels(num_layers)[-1], generator=gen),
+          "fc.bias": torch.zeros(1000)}
+    torch.save({**trunk.state_dict(), **fc}, path)
+    return path
+
+
+@pytest.mark.parametrize("override", [
+    ("model", "weights_init", "pretrained"), ("model", "zoo", "sql"),
+    ("model", "num_layers", 50), ("model", "merged_warp", False),
+    ("model", "pose_input_scale", 0.5),
+])
+def test_lifted_configuration_builds(tiny_kitti, tmp_path, override):
+    """What the port refused until this slice now builds a Trainer on the
+    CPU whose StepStatic carries it (the pretrained case from a local
+    ResNet-18 file, which seeds both encoders)."""
+    data, splits, logs = tiny_kitti
+    cfg = _config(data, splits, logs, "lifted")
+    sec, field, value = override
+    setattr(getattr(cfg, sec), field, value)
+    if value == "pretrained":
+        cfg.model.pretrained_path = _resnet_file(str(tmp_path / "rn18.pth"), 18)
+    tr = Trainer(cfg, device="cpu")
+    st = tr._static_for_stage(stage_for_epoch(0, True, sql=cfg.model.zoo == "sql"))
+    assert (st.zoo, st.num_layers) == (cfg.model.zoo, cfg.model.num_layers)
+    assert st.merged_warp == (value is not False)
+    assert st.pose_input_scale == cfg.model.pose_input_scale
+    assert st.scales == ((0,) if cfg.model.zoo == "sql" else (0, 1, 2, 3))
+    if value == 50:
+        assert tr.state.depth_net.encoder.num_ch_enc == (64, 256, 512, 1024, 2048)
+    if value == "pretrained":
+        w = torch.load(cfg.model.pretrained_path)["conv1.weight"]
+        assert torch.equal(tr.state.depth_net.encoder.encoder.conv1.weight, w)
+        assert torch.equal(tr.state.pose_net.encoder.encoder.conv1.weight,
+                           torch.cat([w, w], 1) / 2)
+    tr.logger.close()
+
+
+def test_cli_trains_cadepth_from_pretrained_encoders(tiny_kitti, tmp_path, monkeypatch):
+    """cli.train, one epoch of one step: cadepth (the two-call warp
+    schedule at its default) from a local ResNet-50 file given as
+    --model.pretrained_path, the pose encoder from the ResNet-18 file
+    fetch_torchvision_resnet finds in its local cache (models/ under the
+    working directory, its name carrying its sha256 prefix; the table's URL
+    is never fetched)."""
+    import hashlib
+
+    from baseboostdepth_tpu_torch.cli import train as cli
+    from baseboostdepth_tpu_torch.utils import download
+
+    data, splits, logs = tiny_kitti
+    rn50 = _resnet_file(str(tmp_path / "rn50.pth"), 50, seed=1)
+    monkeypatch.chdir(tmp_path)
+    os.makedirs("models")
+    rn18 = _resnet_file(str(tmp_path / "rn18.tmp"), 18, seed=2)
+    prefix = hashlib.sha256(open(rn18, "rb").read()).hexdigest()[:8]
+    cached = os.path.join("models", f"resnet18-{prefix}.pth")
+    os.rename(rn18, cached)
+    monkeypatch.setattr(download, "TORCHVISION_RESNETS",
+                        {18: f"http://invalid.invalid/resnet18-{prefix}.pth"})
+    argv = ["--data.kt_path", data, "--data.splits_dir", splits, "--data.height", "32",
+            "--data.width", "64", "--data.num_workers", "2", "--model.dtype", "float32",
+            "--optim.batch_size", "8", "--optim.num_epochs", "1", "--log.log_dir", logs,
+            "--log.model_name", "cadepth_pre", "--log.log_frequency", "10000",
+            "--log.image_panels", "False", "--model.zoo", "cadepth",
+            "--model.weights_init", "pretrained", "--model.pretrained_path", rn50]
+    tr = cli.build_trainer(argv, device="cpu")
+    assert not tr.cfg.model.resolved_merged_warp()
+    w50 = torch.load(rn50)["conv1.weight"]
+    w18 = torch.load(cached)["conv1.weight"]
+    assert torch.equal(tr.state.depth_net.encoder.encoder.conv1.weight, w50)
+    assert torch.equal(tr.state.pose_net.encoder.encoder.conv1.weight, torch.cat([w18, w18], 1) / 2)
+    tr.train()
+    assert tr.state.step == 1 and tr.ckpt.latest_step() == 1
+    assert not torch.equal(tr.state.depth_net.encoder.encoder.conv1.weight, w50)
+    tr.logger.close()
 
 
 def test_entry_points_default_to_the_card(tiny_kitti):
@@ -213,21 +296,24 @@ def test_static_for_stage_matches_jax(tiny_kitti):
     from baseboostdepth_tpu.training.trainer import Trainer as JaxTrainer
 
     data, splits, logs = tiny_kitti
-    for curriculum in (True, False):
+    for zoo, curriculum in ((z, c) for z in ("md2", "cadepth", "sql") for c in (True, False)):
         cfg = _config(data, splits, logs, "static")
+        cfg.model.zoo = zoo
         cfg.method.curriculum = curriculum
         cfg.method.no_ssim = not curriculum
         cfg.method.pose_error = 4.0
+        cfg.model.pose_input_scale = 0.5 if curriculum else 1.0
         # _static_for_stage reads cfg only
         tr = Trainer.__new__(Trainer)
         tr.cfg = cfg
         jtr = JaxTrainer.__new__(JaxTrainer)
         jtr.cfg = JaxConfig.from_dict(cfg.to_dict())
         for epoch in (0, 5, 10, 19):
-            tst = tr._static_for_stage(stage_for_epoch(epoch, True))
-            jst = jtr._static_for_stage(jax_stage_for_epoch(epoch, True))
+            tst = tr._static_for_stage(stage_for_epoch(epoch, True, sql=zoo == "sql"))
+            jst = jtr._static_for_stage(jax_stage_for_epoch(epoch, True, sql=zoo == "sql"))
             for f in dataclasses.fields(tst):
-                assert getattr(tst, f.name) == getattr(jst, f.name), (curriculum, epoch, f.name)
+                assert getattr(tst, f.name) == getattr(jst, f.name), (zoo, curriculum, epoch,
+                                                                      f.name)
 
 
 def test_prefetch_to_device_passes_batches_through_on_the_cpu(tiny_kitti):

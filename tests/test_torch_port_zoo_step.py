@@ -1,0 +1,363 @@
+"""Port parity: whole training steps of the zoos and options this slice
+ports, baseboostdepth_tpu_torch against baseboostdepth_tpu on the CPU,
+float32, the same weights (the port's init, carried to JAX by the JAX
+package's importers of reference checkpoints), the same batch and the same
+automask noise:
+
+  md2_rn50        md2 with a ResNet-50 encoder, F=2 direct poses, scales
+                  0-3, 64x128, batch 2;
+  cadepth_2call   CADepth at its default, the two-call warp schedule
+                  (merged_warp=False: main slots, then the error poses),
+                  F=2, scales 0-3, 64x128, batch 2;
+  sql             SQLdepth (metric depth at H/2, upsampled for the warp and
+                  the smoothness term), F=1, scale 0, 128x512 (its head
+                  needs 64 patch tokens), batch 1, dropout rate 0 on both
+                  sides (JAX: a TransformerLayer subclass put in place by
+                  monkeypatch; the packages' dropout streams cannot agree);
+  pose_half       md2 ResNet-18 with pose_input_scale=0.5 (the pose network
+                  on 32x64 pairs), F=3, incremental + partial + decomp,
+                  scale 0, 64x128, batch 2.
+
+Tolerances are test_torch_port_step.py's (ROADMAP.md, C): losses 1e-6
+relative; gradients per entry 1e-4 relative plus 2e-5 absolute, and per
+tensor the L2 norm of the difference within 3e-2 of the reference's norm
+plus 1e-7 RMS. The loss is piecewise smooth (the candidate min, the warp's
+floor, ReLU kinks), and the two packages' float32 networks differ by ~1e-6,
+which flips a branch at a few pixels. The ResNet-50 cases (md2_rn50,
+cadepth_2call, sql) break that bound, and are held to 6e-2 relative L2 per
+tensor and, per entry, 6e-2 of the tensor's largest entry on top of the
+bound above, and their BN statistics to a floor of 2e-4 of each tensor's
+largest entry instead of 1e-5 (ROADMAP.md, C). Measured: md2_rn50 3.9e-2 relative L2 (1.01
+of the standard bound) and entries off by up to 4.2e-2 of their tensor's
+largest (7.3e-4 absolute, the first convolutions); cadepth_2call 1.4e-2,
+sql 1.2e-2 of the largest entry; pose entries and every loss within the
+standard bounds (losses to 5.3e-7); BN statistics off by up to 5.5e-5 of
+their largest entry beyond 1e-4 relative (the last stage). Cause: float32 batch-statistics
+BatchNorm at batch 2 through 50 layers is ill-conditioned. The port's own
+float32 encoder gradients differ from its float64 ones by 2.3% relative L2,
+JAX's float32 CPU convolution gradients differ from float64 by 0.5% even
+with running statistics, and JAX's float32 activations at the last stage
+differ from float64 by up to 6.2e-4 of their largest; in float64 the two
+packages' ResNet-50 encoders agree to 1e-9 (test_torch_port_zoos.py). The JAX side warps with its plain
+XLA gather (warp_impl="xla"; its Pallas kernels in interpret mode add a
+compile of several seconds per case, and test_torch_port_step.py holds the
+port against them), the port with the corner-plane kernel's plain
+version, the default on uint8 frames.
+
+The port's own checks: the merged and two-call schedules give the same
+loss (1e-7) and gradients (1e-4 relative + 1e-7), as the JAX package's
+test_merged_warp_is_loss_and_grad_exact holds; the two-call schedule makes
+two warp calls per scale and the merged one one; the step uses SQLdepth's
+output as depth without disp_to_depth; the SQL head's dropout at 0.1 is
+reproducible from its generator and differs from rate 0.
+
+Single-worker time (one pytest process, one torch thread, Intel Xeon):
+about 120 s, JAX compiling most of it.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import baseboostdepth_tpu.models.sql as jax_sql
+from baseboostdepth_tpu.training.step import StepStatic as JaxStepStatic
+from baseboostdepth_tpu.training.step import loss_forward as jax_loss_forward
+from baseboostdepth_tpu_torch.data.augment import sample_jitter_params
+from baseboostdepth_tpu_torch.models.convert import from_jax
+from baseboostdepth_tpu_torch.models.pose import realistic_pose_bias_
+from baseboostdepth_tpu_torch.training import step as step_mod
+from baseboostdepth_tpu_torch.training.batch import make_batch, num_frames
+from baseboostdepth_tpu_torch.training.step import StepStatic, init_state, loss_forward
+from tests.test_torch_port_zoos import NoDropTransformerLayer, depth_to_flax, pose_to_flax
+
+GRAD_ATOL = 2e-5  # per entry, with rtol 1e-4
+GRAD_LEAF_RTOL, GRAD_LEAF_RMS = 3e-2, 1e-7  # per leaf, L2
+DEEP_RTOL = 6e-2  # ResNet-50 cases: per leaf L2, and per entry of the leaf's largest
+
+CASES = {
+    "md2_rn50": dict(zoo="md2", num_layers=50, H=64, W=128, B=2, F=2, scales=(0, 1, 2, 3),
+                     incremental=False, partial=False, f_max=(2, 1), deep=True),
+    "cadepth_2call": dict(zoo="cadepth", num_layers=50, H=64, W=128, B=2, F=2,
+                          scales=(0, 1, 2, 3), incremental=False, partial=False, f_max=(2, 1),
+                          merged_warp=False, deep=True),
+    "sql": dict(zoo="sql", num_layers=50, H=128, W=512, B=1, F=1, scales=(0,),
+                incremental=False, partial=False, f_max=(1,), deep=True),
+    "pose_half": dict(zoo="md2", num_layers=18, H=64, W=128, B=2, F=3, scales=(0,),
+                      incremental=True, partial=True, f_max=(3, 2), pose_input_scale=0.5),
+}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs files in parallel processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _batch(H, W, B, F, f_max, seed):
+    """Smooth textured uint8 frames (sums of plane waves, as
+    test_torch_port_step.py's, for the reason given there), KITTI-like
+    intrinsics, a stereo slot, colour jitter on the first sample, the
+    second flipped."""
+    rng = np.random.default_rng(seed)
+    NF = num_frames(F)
+    y, x = np.mgrid[0:H, 0:W].astype(np.float64)
+    k = rng.uniform(0.05, 0.2, (B, NF, 3, 3, 2))
+    ph = rng.uniform(0, 2 * np.pi, (B, NF, 3, 3))
+    waves = np.sin(k[..., 0, None, None] * x + k[..., 1, None, None] * y + ph[..., None, None])
+    frames = np.clip(np.rint(127.5 + 40.0 * waves.sum(axis=3)), 0, 255).astype(np.uint8)
+    frames = frames.transpose(0, 1, 3, 4, 2).copy()
+    for b in range(B):  # loader contract: out-of-window frames copy frame 0
+        for o in range(-F, F + 1):
+            if abs(o) > f_max[b]:
+                frames[b, o + F] = frames[b, F]
+    K = np.zeros((B, 4, 4), np.float32)
+    K[:, 0, 0], K[:, 1, 1], K[:, 0, 2], K[:, 1, 2] = 0.58 * W, 1.92 * H, 0.5 * W, 0.5 * H
+    K[:, 2, 2] = K[:, 3, 3] = 1.0
+    stereo_T = np.broadcast_to(np.eye(4, dtype=np.float32), (B, 4, 4)).copy()
+    stereo_T[:, 0, 3] = 0.1
+    jitter = sample_jitter_params(rng, B, NF)
+    jitter[0, :, :3] = rng.uniform(0.8, 1.2, (NF, 3))
+    jitter[0, :, 3] = rng.uniform(-0.1, 0.1, NF)
+    flip = np.arange(B) % 2 == 1
+    return make_batch(frames, np.asarray(f_max), K, stereo_T, flip, jitter, F, True, True)
+
+
+def _statics(cfg, **over):
+    kw = dict(zoo=cfg["zoo"], num_layers=cfg["num_layers"], height=cfg["H"], width=cfg["W"],
+              F=cfg["F"], scales=cfg["scales"], trimin=True, incremental=cfg["incremental"],
+              partial=cfg["partial"], decomp=True, pose_error=5.5, dtype="float32",
+              merged_warp=cfg.get("merged_warp", True),
+              pose_input_scale=cfg.get("pose_input_scale", 1.0))
+    kw.update(over)
+    return JaxStepStatic(warp_impl="xla", **kw), StepStatic(**kw)
+
+
+def _no_dropout_(net):
+    for m in net.modules():
+        if hasattr(m, "dropout_rate"):
+            m.dropout_rate = 0.0
+
+
+def _close(actual, desired, rtol, atol=0.0, what=""):
+    np.testing.assert_allclose(np.asarray(actual, np.float64), np.asarray(desired, np.float64),
+                               rtol=rtol, atol=atol, err_msg=what)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_zoo_step_matches_jax(case, monkeypatch):
+    cfg = CASES[case]
+    monkeypatch.setattr(jax_sql, "TransformerLayer", NoDropTransformerLayer)
+    jst, tst = _statics(cfg)
+    batch = _batch(cfg["H"], cfg["W"], cfg["B"], cfg["F"], cfg["f_max"], seed=cfg["F"] + 10)
+
+    state = init_state(tst, device="cpu")
+    _no_dropout_(state.depth_net)
+    realistic_pose_bias_(state.pose_net)
+    dp, ds = depth_to_flax(tst.zoo, state.depth_net.state_dict())
+    pp, ps = pose_to_flax(state.pose_net.state_dict())
+    params, stats = {"depth": dp, "pose": pp}, {"depth": ds, "pose": ps}
+
+    key = jax.random.PRNGKey(1)
+    noise = np.asarray(
+        jax.random.normal(jax.random.split(key)[0], (cfg["B"], 1, cfg["H"], cfg["W"])) * 1e-5)
+
+    @jax.jit
+    def jax_grad(p, s, b, k):
+        return jax.value_and_grad(lambda p_: jax_loss_forward(p_, s, b, k, jst, True),
+                                  has_aux=True)(p)
+
+    (jloss, (jmetrics, jnew_stats)), jgrads = jax.block_until_ready(jax_grad(
+        jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, stats),
+        jax.tree.map(jnp.asarray, batch), key))
+
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    loss, metrics = loss_forward(state.depth_net, state.pose_net, tb, tst,
+                                 noise=torch.tensor(noise))
+    loss.backward()
+
+    _close(float(loss.detach()), float(jloss), rtol=1e-6, what="loss")
+    for s in cfg["scales"]:
+        _close(float(metrics[f"loss/{s}"]), float(jmetrics[f"loss/{s}"]), rtol=1e-6,
+               what=f"loss/{s}")
+
+    gd, gp = from_jax(jax.tree.map(np.asarray, jgrads), stats)
+    nd, npose = from_jax(params, jax.tree.map(np.asarray, jnew_stats))
+    for net, g_ref, new_ref in ((state.depth_net, gd, nd), (state.pose_net, gp, npose)):
+        deep = cfg.get("deep", False) and net is state.depth_net
+        n_checked = 0
+        for name, p in net.named_parameters():
+            g = g_ref[name].numpy().astype(np.float64)
+            # a head outside StepStatic.scales gets no gradient (JAX: zeros)
+            tgrad = p.grad.numpy() if p.grad is not None else np.zeros(g.shape, np.float32)
+            atol = GRAD_ATOL + (DEEP_RTOL * np.abs(g).max() if deep else 0.0)
+            _close(tgrad, g, rtol=1e-4, atol=atol, what=f"grad {name}")
+            err = np.linalg.norm(tgrad - g)
+            rtol = DEEP_RTOL if deep else GRAD_LEAF_RTOL
+            bound = rtol * np.linalg.norm(g) + GRAD_LEAF_RMS * np.sqrt(g.size)
+            assert err <= bound, f"grad {name}: |diff| {err:.3e} > {bound:.3e}"
+            n_checked += 1
+        assert n_checked == len(list(net.parameters()))
+        for name, buf in net.state_dict().items():
+            if "running_" in name:
+                ref = new_ref[name].numpy()
+                # BN statistics 1e-4 relative, floor 1e-5 of the largest entry
+                # for batch means that nearly cancel (test_torch_port_step.py);
+                # 2e-4 in the ResNet-50 networks (module docstring)
+                floor = 2e-4 if deep else 1e-5
+                _close(buf.numpy(), ref, rtol=1e-4, atol=floor * np.abs(ref).max(), what=name)
+
+
+def _port_loss_and_grads(st, batch, noise, seed=0):
+    state = init_state(st, seed=seed, device="cpu")
+    realistic_pose_bias_(state.pose_net)
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    loss, _ = loss_forward(state.depth_net, state.pose_net, tb, st, noise=noise)
+    loss.backward()
+    grads = {f"{n}.{k}": p.grad.clone() for n, net in (("d", state.depth_net),
+                                                        ("p", state.pose_net))
+             for k, p in net.named_parameters() if p.grad is not None}
+    return float(loss.detach()), grads
+
+
+@pytest.fixture()
+def warp_calls(monkeypatch):
+    """Counts the step's warp calls (the kernel wrapper resolve_warp hands
+    back), one entry per call: its number of images."""
+    calls = []
+    resolve = step_mod.resolve_warp
+
+    def counting(frames, impl):
+        fn = resolve(frames, impl)
+
+        def warp(src, grid):
+            calls.append(src.shape[0])
+            return fn(src, grid)
+
+        return warp
+
+    monkeypatch.setattr(step_mod, "resolve_warp", counting)
+    return calls
+
+
+def test_merged_warp_is_loss_and_grad_exact(warp_calls):
+    """merged_warp=True (one call over 2S-1 slots) and False (S slots, then
+    S-1) warp the same images: loss to 1e-7, gradients to 1e-4 relative +
+    1e-7; one warp call per scale merged, two with the two-call schedule."""
+    cfg = CASES["pose_half"]
+    _, st = _statics(cfg, pose_input_scale=1.0, num_layers=18)
+    batch = _batch(cfg["H"], cfg["W"], cfg["B"], cfg["F"], cfg["f_max"], seed=3)
+    noise = torch.randn((cfg["B"], 1, cfg["H"], cfg["W"]),
+                        generator=torch.Generator().manual_seed(4)) * 1e-5
+    S = batch["slot_offset"].shape[1] + 1  # temporal slots + stereo
+    merged = _port_loss_and_grads(dataclasses.replace(st, merged_warp=True), batch, noise)
+    assert warp_calls == [cfg["B"] * (2 * S - 1)]
+    warp_calls.clear()
+    two = _port_loss_and_grads(dataclasses.replace(st, merged_warp=False), batch, noise)
+    assert warp_calls == [cfg["B"] * S, cfg["B"] * (S - 1)]
+    assert abs(merged[0] - two[0]) <= 1e-7
+    assert merged[1].keys() == two[1].keys()
+    for k in merged[1]:
+        _close(two[1][k].numpy(), merged[1][k].numpy(), rtol=1e-4, atol=1e-7, what=k)
+
+
+class _ConstantDepth(torch.nn.Module):
+    """A stand-in depth network that outputs `value` at H/2, as SQLdepth's
+    four references to one map."""
+
+    def __init__(self, value):
+        super().__init__()
+        self.value = value
+        self.scale = torch.nn.Parameter(torch.ones(()))
+
+    def forward(self, x, generator=None):
+        d = self.scale * torch.full((x.shape[0], x.shape[1] // 2, x.shape[2] // 2, 1), self.value)
+        return (d, d, d, d)
+
+
+def test_metric_depth_zoo_output_is_the_depth(monkeypatch):
+    """For a DEPTH_IS_METRIC zoo the step warps with the network's output
+    as depth (JAX step.py:554-557); for md2 it goes through disp_to_depth.
+    The depth handed to the warp grid is recorded."""
+    from baseboostdepth_tpu_torch import geometry
+
+    seen = []
+    grid = geometry.warp_grid
+
+    def recording(depth, *a, **k):
+        seen.append(depth.detach())
+        return grid(depth, *a, **k)
+
+    monkeypatch.setattr(geometry, "warp_grid", recording)
+    cfg = CASES["pose_half"]
+    batch = _batch(cfg["H"], cfg["W"], cfg["B"], cfg["F"], cfg["f_max"], seed=5)
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    for zoo, expect in (("sql", 7.0), ("md2", 1.0 / (1.0 / 100 + (1.0 / 0.1 - 1.0 / 100) * 7.0))):
+        _, st = _statics(cfg, zoo=zoo, num_layers=18, scales=(0,))
+        state = init_state(st, device="cpu")
+        seen.clear()
+        loss, _ = loss_forward(_ConstantDepth(7.0), state.pose_net, tb, st)
+        assert torch.isfinite(loss) and seen
+        for d in seen:
+            assert torch.allclose(d, torch.full_like(d, expect), rtol=1e-6), (zoo, d.flatten()[:3])
+
+
+def test_sql_dropout_comes_from_the_generator():
+    """The SQL head at its dropout rate 0.1 in train mode: the same
+    generator seed gives the same output bit for bit, another seed another
+    output, and both differ from rate 0 (eval mode draws nothing)."""
+    from baseboostdepth_tpu_torch.models import build_depth_net
+
+    net = build_depth_net("sql", 50, torch.Generator().manual_seed(0)).train()
+    x = torch.rand((1, 128, 512, 3), generator=torch.Generator().manual_seed(1))
+    enc = net.encoder(x.permute(0, 3, 1, 2)).detach()
+    head = net.head
+
+    def run(seed):
+        gen = None if seed is None else torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            return head(enc, gen)
+
+    a, b, c = run(2), run(2), run(3)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c)
+    _no_dropout_(head)
+    d = run(2)
+    assert not torch.equal(a, d)
+    assert torch.equal(d, run(None))  # rate 0 draws nothing from any generator
+
+
+def test_sql_eval_forwards_match_jax(monkeypatch):
+    """The evaluators' forwards on an SQLdepth network (metric depth, no
+    disp_to_depth, at H/2): evaluation/depth.py::make_disp_forward and the
+    step's make_eval_forward against the JAX package's, eval mode, to 1e-4
+    of the depth's largest magnitude (the forward tolerance of
+    test_torch_port_zoos.py)."""
+    from baseboostdepth_tpu.evaluation.depth import make_disp_forward as jax_disp_forward
+    from baseboostdepth_tpu.training.step import make_eval_forward as jax_eval_forward
+    from baseboostdepth_tpu_torch.evaluation.depth import make_disp_forward
+    from baseboostdepth_tpu_torch.training.step import make_eval_forward
+
+    monkeypatch.setattr(jax_sql, "TransformerLayer", NoDropTransformerLayer)
+    cfg = CASES["sql"]
+    jst, tst = _statics(cfg)
+    state = init_state(tst, device="cpu")
+    dp, ds = depth_to_flax(tst.zoo, state.depth_net.state_dict())
+    pp, ps = pose_to_flax(state.pose_net.state_dict())
+    params = jax.tree.map(jnp.asarray, {"depth": dp, "pose": pp})
+    stats = jax.tree.map(jnp.asarray, {"depth": ds, "pose": ps})
+    images = np.random.default_rng(6).uniform(0, 1, (1, cfg["H"], cfg["W"], 3)).astype(np.float32)
+    ref = np.asarray(jax_disp_forward(jst)(params, stats, jnp.asarray(images)))
+    assert ref.shape == (1, cfg["H"] // 2, cfg["W"] // 2)
+    for name, out in (("make_disp_forward", make_disp_forward(tst, "cpu")(state.depth_net, images)),
+                      ("make_eval_forward", make_eval_forward(tst, "cpu")(state.depth_net, images))):
+        assert tuple(out.shape) == ref.shape, name
+        _close(out.numpy(), ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max(), what=name)
+    np.testing.assert_array_equal(
+        np.asarray(jax_eval_forward(jst)(params, stats, jnp.asarray(images))), ref)
