@@ -5,10 +5,11 @@ Every depth network obeys one contract:
     maps [B, h, w, 1], finest first, disp_s at 1/2^s resolution, sigmoid in
     [0, 1], float32 (SQLdepth returns metric depth at 1/2 resolution
     instead, four times -- flagged via DEPTH_IS_METRIC). `generator` draws
-    the SQL head's dropout masks in train mode; the other zoos draw nothing.
+    the SQL head's dropout masks and MonoViT's drop-path masks in train
+    mode; the other zoos draw nothing.
     module.dispconvs() lists the disparity-head convs (none for SQLdepth).
-Ported zoos: md2 (ResNet-18/34/50/101/152), cadepth, sql and sql_large;
-monovit and diffnet are not ported yet. The pose pair is always ResNet-18
+Zoos: md2 (ResNet-18/34/50/101/152), monovit, cadepth, diffnet, sql and
+sql_large, every zoo of the JAX package. The pose pair is always ResNet-18
 2-frame + pose head (reference trainer.py:94-103).
 """
 
@@ -21,6 +22,8 @@ from torch import nn
 
 from baseboostdepth_tpu_torch.models.cadepth import CADepthNet
 from baseboostdepth_tpu_torch.models.depth_decoder import DepthDecoder, init_decoder_
+from baseboostdepth_tpu_torch.models.diffnet import DIFFNetDepthNet
+from baseboostdepth_tpu_torch.models.monovit import MonoViTDepthNet
 from baseboostdepth_tpu_torch.models.pose import PoseDecoder, PoseNet  # noqa: F401
 from baseboostdepth_tpu_torch.models.resnet import (  # noqa: F401
     ResnetEncoder,
@@ -56,10 +59,13 @@ def build_depth_net(
     generator: Optional[torch.Generator] = None,
 ) -> nn.Module:
     """Build (and initialise from `generator`) a depth network by zoo name
-    ('md2', 'cadepth', 'sql', 'sql_large'). `num_layers` is md2's ResNet
-    depth; cadepth and sql always use a ResNet-50, as in the JAX package.
-    The md2 and cadepth decoders always own all four disparity heads
-    (scales 0-3)."""
+    ('md2', 'monovit', 'cadepth', 'diffnet', 'sql', 'sql_large').
+    `num_layers` is md2's ResNet depth; cadepth and sql always use a
+    ResNet-50, monovit an MPViT-small and diffnet an HRNet-18, as in the JAX
+    package. Every decoder but SQLdepth's owns all four disparity heads
+    (scales 0-3). Initialisation follows flax's: the ResNet and HRNet trunks
+    torchvision's kaiming fan-out, every other conv and linear layer
+    lecun-normal with zero bias."""
     zoo = zoo.lower()
     if zoo in ("md2", "cadepth"):
         net = MD2DepthNet(num_layers=num_layers) if zoo == "md2" else CADepthNet()
@@ -70,9 +76,15 @@ def build_depth_net(
         net = SQLDepthNet(large=zoo == "sql_large")
         init_sql_(net, generator)
         return net
-    if zoo in ("monovit", "diffnet"):
-        raise NotImplementedError(
-            f"zoo {zoo!r} is not ported yet: ROADMAP.md, A5 (diffnet and monovit)")
+    if zoo == "monovit":
+        net = MonoViTDepthNet()
+        init_decoder_(net, generator)
+        return net
+    if zoo == "diffnet":
+        net = DIFFNetDepthNet()
+        init_encoder_(net.encoder, generator)
+        init_decoder_(net.decoder, generator)
+        return net
     raise ValueError(f"unknown zoo: {zoo}")
 
 

@@ -97,7 +97,8 @@ def init_decoder_(module: nn.Module, generator: torch.Generator) -> None:
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             lecun_normal_(m.weight, generator)
-            nn.init.zeros_(m.bias)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)

@@ -2,7 +2,8 @@
 
     python -m baseboostdepth_tpu_torch.profile_step [--stage late_F7|early_F2|both] [--steps 2]
         [--photo_impl xla|fused] [--warp_impl auto|corner|pallas] [--float_frames]
-        [--zoo md2|cadepth|sql|sql_large] [--num_layers 18] [--merged_warp auto|true|false]
+        [--zoo md2|monovit|cadepth|diffnet|sql|sql_large] [--num_layers 18]
+        [--merged_warp auto|true|false]
         [--pose_input_scale 1.0]
 
 Builds the main path as chip_smoke.py does (md2 ResNet-18, 640x192, batch
@@ -138,7 +139,8 @@ def main(argv=None) -> int:
     ap.add_argument("--warp_impl", choices=["auto", "corner", "pallas"], default="auto")
     ap.add_argument("--float_frames", action="store_true",
                     help="feed float32 frames (uint8 / 255): the float-planes warp")
-    ap.add_argument("--zoo", choices=["md2", "cadepth", "sql", "sql_large"], default="md2")
+    ap.add_argument("--zoo", choices=["md2", "monovit", "cadepth", "diffnet", "sql", "sql_large"],
+                    default="md2")
     ap.add_argument("--num_layers", type=int, default=18, help="md2's ResNet depth")
     ap.add_argument("--merged_warp", choices=["auto", "true", "false"], default="auto")
     ap.add_argument("--pose_input_scale", type=float, default=1.0)

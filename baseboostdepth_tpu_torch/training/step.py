@@ -55,7 +55,7 @@ from baseboostdepth_tpu_torch.models import DEPTH_IS_METRIC, build_depth_net, bu
 from baseboostdepth_tpu_torch.ops.resize import lanczos_pyramid, resize_bilinear
 from baseboostdepth_tpu_torch.ops.sampling import bilinear_sample, resolve_warp
 from baseboostdepth_tpu_torch.training.batch import num_temporal_slots
-from baseboostdepth_tpu_torch.training.optim import make_optimizer
+from baseboostdepth_tpu_torch.training.optim import make_optimizer, make_vit_optimizer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,16 +151,27 @@ def init_state(
     milestones: Sequence[int] = (11, 13, 15, 16, 17, 18, 19),
     gamma: float = 0.4,
     steps_per_epoch: int = 1,
+    vit_encoder_lr: float = 5e-5,
 ) -> TrainState:
     """Networks initialised from `seed` (on the CPU, then moved to `device`
-    in channels-last layout) and Adam under the MultiStep schedule."""
+    in channels-last layout) and Adam under the MultiStep schedule; for
+    monovit the two-group AdamW (the depth encoder at `vit_encoder_lr`), as
+    the JAX trainer builds it."""
     device = require_device(device)
     gen = torch.Generator().manual_seed(seed)
     depth_net, pose_net = build_networks(st, gen)
     depth_net.to(device, memory_format=torch.channels_last)
     pose_net.to(device, memory_format=torch.channels_last)
-    params = list(depth_net.parameters()) + list(pose_net.parameters())
-    opt, sched = make_optimizer(params, learning_rate, milestones, gamma, steps_per_epoch)
+    if st.zoo == "monovit":
+        encoder = list(depth_net.encoder.parameters())
+        ids = {id(p) for p in encoder}
+        rest = [p for p in depth_net.parameters() if id(p) not in ids]
+        opt, sched = make_vit_optimizer(encoder, rest + list(pose_net.parameters()),
+                                        learning_rate, vit_encoder_lr, milestones, gamma,
+                                        steps_per_epoch)
+    else:
+        params = list(depth_net.parameters()) + list(pose_net.parameters())
+        opt, sched = make_optimizer(params, learning_rate, milestones, gamma, steps_per_epoch)
     return TrainState(0, depth_net, pose_net, opt, sched)
 
 

@@ -14,13 +14,14 @@ a resumed run replays the stream of an uninterrupted one.
 With `log.syns_val` it also runs the SYNS val split (edge metrics) at every
 log step (trainer.py:646-663).
 
-Zoos: md2 (ResNet-18/34/50/101/152), cadepth and sql / sql_large, with
-`model.merged_warp`, `model.pose_input_scale` and `model.weights_init
-pretrained` (ImageNet ResNets from `model.pretrained_path` or torchvision's
-files, models/torch_import.py). Not ported yet, and refused with
+Zoos: md2 (ResNet-18/34/50/101/152), monovit (with its two-group AdamW,
+the depth encoder at `optim.vit_encoder_lr`), cadepth, diffnet and sql /
+sql_large, with `model.merged_warp`, `model.pose_input_scale` and
+`model.weights_init pretrained` (ImageNet encoders from
+`model.pretrained_path`, or torchvision's ResNet files,
+models/torch_import.py). Not ported yet, and refused with
 NotImplementedError rather than ignored (see `check_supported`):
-multi-process training (ROADMAP.md, A6) and the monovit and diffnet zoos
-(A5).
+multi-process training (ROADMAP.md, A6).
 """
 
 from __future__ import annotations
@@ -58,15 +59,10 @@ from baseboostdepth_tpu_torch.utils import resolve_splits_dir, sec_to_hm_str
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for configuration this port does not run
     yet, instead of training something else than asked."""
-    unported = []
     if cfg.dist.enabled:
-        unported.append("dist.enabled (multi-GPU training, A6)")
-    if cfg.model.zoo in ("monovit", "diffnet"):
-        unported.append(f"model.zoo={cfg.model.zoo!r} (A5)")
-    if unported:
         raise NotImplementedError(
             "not ported to baseboostdepth_tpu_torch yet (see ROADMAP.md, 'Open items'): "
-            + "; ".join(unported))
+            "dist.enabled (multi-GPU training, A6)")
 
 
 def step_seed(seed: int, global_step: int) -> int:
@@ -187,7 +183,7 @@ class Trainer:
         self.state = init_state(
             st0, seed=cfg.seed, device=self.device, learning_rate=cfg.optim.learning_rate,
             milestones=cfg.optim.lr_milestones, gamma=cfg.optim.lr_gamma,
-            steps_per_epoch=self.steps_per_epoch,
+            steps_per_epoch=self.steps_per_epoch, vit_encoder_lr=cfg.optim.vit_encoder_lr,
         )
         if cfg.method.disp_init_bias is not None:
             init_disp_bias(self.state.depth_net, cfg.method.disp_init_bias)
@@ -244,7 +240,7 @@ class Trainer:
                     "have no stable public URL; see utils/download.py)")
             depth_path = download.fetch_torchvision_resnet(depth_layers[zoo])
         pose_path = None
-        if depth_layers[zoo] != 18:  # the pose pair is always a ResNet-18
+        if depth_layers.get(zoo) != 18:  # the pose pair is always a ResNet-18
             pose_path = download.fetch_torchvision_resnet(18)
         load_pretrained_encoder(self.state.depth_net, self.state.pose_net, depth_path, zoo,
                                 pose_path=pose_path)

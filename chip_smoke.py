@@ -46,7 +46,10 @@ In order, it
   7. checks the step on a small input against the same step on the CPU,
      with the default options, with photo_impl="fused", warp_impl="pallas",
      with float frames, with md2 ResNet-50, with CADepth (the two-call warp
-     schedule) and with SQLdepth (128x512, dropout off);
+     schedule), with SQLdepth (128x512, dropout off), with MonoViT
+     (drop-path off) and with DIFFNet; then MonoViT's drop-path on the card:
+     the same generator seed gives the same train-mode output, another seed
+     another;
   8. trains the md2 main path at full width (640x192, batch 12, bf16
      networks): 3 steps of the late stage (F=7, scale 0, tri-min +
      incremental + partial + decomp, merged warp) and 2 of the early stage
@@ -55,17 +58,21 @@ In order, it
      float-planes warp); then the same two stages with md2 ResNet-50, with
      CADepth at its default two-call warp schedule (two corner_sweep
      launches a scale; the late stage also with the fused and packed
-     kernels) and with SQLdepth (scale 0 only), and the late stage with
-     pose_input_scale=0.5; finite losses, moving parameters and BN
-     statistics, and every kernel's launches counted in each run and held
-     to the counts the step's structure implies;
+     kernels) and with SQLdepth (scale 0 only), the late stage with
+     pose_input_scale=0.5, then the same two stages with MonoViT (its
+     two-group AdamW; the late stage also with the fused and packed
+     kernels) and with DIFFNet, both merged; finite losses, moving
+     parameters and BN statistics, and every kernel's launches counted in
+     each run and held to the counts the step's structure implies;
   9. writes KITTI-raw, SYNS and KITTI-odometry trees of random images at
      their published sizes under build/, exports the SYNS GT (cli.export_gt,
      test and val), and runs the training entry point (cli.train): one
      epoch at the default configuration, ending in a checkpoint, then again
      with two epochs, which must resume from it, then a third epoch with
      SYNS validation and image panels on; one epoch each of
-     --model.zoo cadepth and --model.zoo sql; prints which JPEG decoder the
+     --model.zoo cadepth, sql, monovit (whose checkpoint must hold the
+     depth encoder's AdamW group at optim.vit_encoder_lr) and diffnet;
+     prints which JPEG decoder the
      loader took (the native one where g++ and libjpeg build it, else PIL),
      times the loader alone with each decoder available, and holds every
      batch of an epoch that the trainer's device prefetcher sends to the
@@ -74,7 +81,8 @@ In order, it
      cli.evaluate_depth (eigen mono with --save_pred_disps, then
      --ext_disp_to_eval on the saved stack, which must reproduce it
      exactly; the same on the sql checkpoint, whose stack is metric depth
-     at H/2; --post_process; --stereo; SYNS with --chamfer at full SYNS
+     at H/2; eigen mono on the monovit checkpoint; --post_process;
+     --stereo; SYNS with --chamfer at full SYNS
      size), cli.evaluate_pose, cli.infer on a folder and cli.visualize;
      times predict_disparities and the chamfer search, and holds the card's
      chamfer distances against the CPU's;
@@ -112,6 +120,8 @@ RN50 = dict(num_layers=50)
 CADEPTH = dict(zoo="cadepth", merged_warp=False)
 SQL = dict(zoo="sql", scales=(0,))
 POSE_HALF = dict(pose_input_scale=0.5)
+MONOVIT = dict(zoo="monovit")
+DIFFNET = dict(zoo="diffnet")
 
 # float32 operations per pixel, counted in the kernels' source (adds,
 # multiplies, divides, compares; an FMA counts 2; index arithmetic not
@@ -1133,8 +1143,8 @@ def parity_phase(torch, float_frames=False, height=64, width=128, **options):
     """The step on a small input, on the card (kernels) and on the CPU (plain
     versions), fp32 with TF32 off: the losses must agree. `options` set
     StepStatic fields (a zoo, md2's num_layers, merged_warp, the kernel
-    options); SQLdepth's dropout is off, since the card's and the CPU's
-    generators draw different masks."""
+    options); SQLdepth's dropout and MonoViT's drop-path are off, since the
+    card's and the CPU's generators draw different masks."""
     from baseboostdepth_tpu_torch.training.batch import synthetic_batch
     from baseboostdepth_tpu_torch.training.step import StepStatic, init_state, loss_forward
 
@@ -1146,8 +1156,9 @@ def parity_phase(torch, float_frames=False, height=64, width=128, **options):
     for dev in ("cuda", "cpu"):
         state = init_state(st, seed=3, device=dev)
         for m in state.depth_net.modules():
-            if hasattr(m, "dropout_rate"):
-                m.dropout_rate = 0.0
+            for rate in ("dropout_rate", "drop_rate"):
+                if hasattr(m, rate):
+                    setattr(m, rate, 0.0)
         tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         if float_frames:
             tb = as_float_frames(torch, tb)
@@ -1163,6 +1174,32 @@ def parity_phase(torch, float_frames=False, height=64, width=128, **options):
                        f"{losses['cpu']}")
     print(f"parity check {label}: {height}x{width} step loss card "
           f"{losses['cuda']:.7f} vs CPU {losses['cpu']:.7f} (rel {rel:.2e})")
+
+
+def drop_path_phase(torch):
+    """MonoViT (MPViT-small, drop-path 0.2) in train mode on the card, at
+    2 x 192x640: two forwards with a generator of the same seed give the
+    same disparities, one with another seed gives others; in eval mode the
+    generator changes nothing."""
+    from baseboostdepth_tpu_torch.models import build_depth_net
+
+    net = build_depth_net("monovit", generator=torch.Generator().manual_seed(0)).cuda()
+    x = torch.rand(2, H, W, 3, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+
+    def disp(seed, train=True):
+        net.train(train)
+        with torch.no_grad():
+            return net(x, generator=torch.Generator("cuda").manual_seed(seed))[0]
+
+    a, b, c = disp(7), disp(7), disp(8)
+    check(torch.equal(a, b), "drop-path: the same generator seed gave other outputs")
+    check(not torch.equal(a, c), "drop-path: another generator seed gave the same outputs")
+    check(torch.equal(disp(7, False), disp(8, False)), "drop-path drew masks in eval mode")
+    print(f"drop-path check: MonoViT train-mode disparities equal for one generator seed, "
+          f"max |difference| {float((a - c).abs().max()):.3e} for another; eval mode draws "
+          "nothing")
+    del net
+    torch.cuda.empty_cache()
 
 
 def expected_launches(st, float_frames=False) -> dict:
@@ -1502,12 +1539,16 @@ def zoo_trainer_phase(torch, card, root):
     """One short epoch (epoch 0: F=2, 4 steps, a metrics line at batch 2,
     ending in a checkpoint) of cli.train with --model.zoo cadepth (its
     default two-call warp schedule, 4 loss scales: 8 corner_sweep launches
-    a step) and with --model.zoo sql (scale 0 only: 1 a step), at the
-    trainer phase's configuration and trees; the sql checkpoint is the eval
-    phase's metric-depth case."""
+    a step), --model.zoo sql (scale 0 only: 1 a step), --model.zoo monovit
+    and --model.zoo diffnet (merged, 4 scales: 4 a step), at the trainer
+    phase's configuration and trees. The monovit checkpoint must hold its
+    two AdamW groups: the depth encoder's parameters at
+    optim.vit_encoder_lr, the rest at optim.learning_rate. The sql and
+    monovit checkpoints are scored by the eval phase."""
     from baseboostdepth_tpu_torch.cli import train as cli
+    from baseboostdepth_tpu_torch.training.checkpoint import CheckpointManager
 
-    per_step = {"cadepth": 8, "sql": 1}
+    per_step = {"cadepth": 8, "sql": 1, "monovit": 4, "diffnet": 4}
     launches, walls = dict.fromkeys(KERNELS, 0), {}
     for zoo, n in per_step.items():
         argv = ["--data.kt_path", os.path.join(root, "raw"),
@@ -1533,6 +1574,19 @@ def zoo_trainer_phase(torch, card, root):
               f"trainer {zoo}: metrics lines {logged}")
         for k in KERNELS:
             launches[k] += got[k]
+        if zoo == "monovit":
+            saved, _ = CheckpointManager(tr.ckpt.directory).restore(None)
+            groups = saved["optimizer"]["param_groups"]
+            n_enc = len(list(tr.state.depth_net.encoder.parameters()))
+            check([g["lr"] for g in groups] == [tr.cfg.optim.vit_encoder_lr,
+                                                tr.cfg.optim.learning_rate]
+                  and len(groups[0]["params"]) == n_enc
+                  and all(g["weight_decay"] == 1e-4 for g in groups),
+                  f"trainer monovit: checkpointed optimizer groups "
+                  f"{[(g['lr'], len(g['params'])) for g in groups]}")
+            print(f"trainer monovit: the checkpoint's AdamW groups: {n_enc} encoder "
+                  f"parameters at {groups[0]['lr']}, {len(groups[1]['params'])} others at "
+                  f"{groups[1]['lr']}, weight decay 1e-4")
         print(f"trainer {zoo}: one epoch of cli.train, {steps} steps, loss at batch 2 "
               f"{logged[0]['loss']:.6f}, {got['corner_sweep']} corner_sweep launches; "
               f"wall clock {walls[zoo]:.2f} s (networks' init, loader, checkpoint) [{card}]")
@@ -1605,6 +1659,12 @@ def eval_phase(torch, card, root):
           f"sql saved depths {sql_depths.shape}")
     sql_ext = evaluate_depth.main(sql_base + ["--ext_disp_to_eval", saved_sql])
     check(sql_ext == sql_mono, f"sql --ext_disp_to_eval {sql_ext} differs from {sql_mono}")
+    vit_base = ["--config", os.path.join(root, "logs", "smoke_monovit", "config.json"),
+                "--checkpoint", os.path.join(root, "logs", "smoke_monovit", "checkpoints")]
+    saved_vit = os.path.join(root, "disps_monovit.npy")
+    finite_metrics("eigen mono, monovit", timed("eigen_mono_monovit", lambda: evaluate_depth.main(
+        vit_base + ["--save_pred_disps", saved_vit])))
+    check(np.load(saved_vit).shape == (N_EVAL, H, W), "monovit saved disparities' shape")
     pp = finite_metrics("eigen post_process", timed("eigen_pp", lambda: evaluate_depth.main(
         base + ["--post_process"])))
     stereo = finite_metrics("eigen stereo", timed("eigen_stereo", lambda: evaluate_depth.main(
@@ -1749,6 +1809,9 @@ def main() -> int:
     parity_phase(torch, **RN50)
     parity_phase(torch, **CADEPTH)
     parity_phase(torch, height=128, width=512, **SQL)  # the SQL head needs 64 tokens
+    parity_phase(torch, **MONOVIT)
+    parity_phase(torch, **DIFFNET)
+    drop_path_phase(torch)
     runs = {
         "probe_tool": probe_run,
         "late_F7": step_phase(torch, card, "late_F7", steps=3),
@@ -1765,11 +1828,16 @@ def main() -> int:
         "late_sql": step_phase(torch, card, "late_F7", steps=3, **SQL),
         "early_sql": step_phase(torch, card, "early_F2", steps=2, **SQL),
         "late_F7_pose_half": step_phase(torch, card, "late_F7", steps=3, **POSE_HALF),
+        "late_F7_monovit": step_phase(torch, card, "late_F7", steps=3, **MONOVIT),
+        "early_F2_monovit": step_phase(torch, card, "early_F2", steps=2, **MONOVIT),
+        "late_F7_monovit_fused": step_phase(torch, card, "late_F7", steps=3, **MONOVIT, **FUSED),
+        "late_F7_diffnet": step_phase(torch, card, "late_F7", steps=3, **DIFFNET),
+        "early_F2_diffnet": step_phase(torch, card, "early_F2", steps=2, **DIFFNET),
     }
     steps = {name: {k: r[k] for k in ("ms_per_step", "peak_gb", "loss_rel_vs_uint8") if k in r}
              for name, r in runs.items() if name != "probe_tool"}
     print(f"steps (default options, {FUSED}, float frames, {RN50}, {CADEPTH}, {SQL}, "
-          f"{POSE_HALF}): {json.dumps(steps)} [{card}]")
+          f"{POSE_HALF}, {MONOVIT}, {DIFFNET}): {json.dumps(steps)} [{card}]")
 
     from baseboostdepth_tpu_torch.cli import export_gt
 

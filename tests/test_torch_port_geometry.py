@@ -12,6 +12,18 @@ import torch
 from baseboostdepth_tpu import geometry as jg
 from baseboostdepth_tpu_torch import geometry as tg
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs files in parallel processes, and
+    torch's default pool (one thread per core) in each oversubscribes the
+    CPU and slows every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-6
 
 

@@ -3,10 +3,15 @@
 Torchvision-layout ImageNet ResNet files (ResNet-18 from a seeded port
 trunk plus a classifier, written without BatchNorm counters as older
 torchvision files are; ResNet-50 from tests/torch_zoo_refs.py's replica)
-and reference-layout weights folders (md2 at ResNet-18 and -50, CADepth,
-SQLdepth: `encoder.pth` with the reference's height/width/use_stereo
-entries and the torchvision classifier, `depth.pth`, `pose_encoder.pth`,
-`pose.pth`, from seeded port modules and the replicas) are written with
+the released mpvit_small.pth (tests/torch_mpvit_ref.py's replica, its
+tensors under 'model', plus an ImageNet classifier) and an ImageNet HRNet-18
+(tests/torch_zoo_refs.py::make_hrnet18 plus classification heads), and
+reference-layout weights folders (md2 at ResNet-18 and -50, CADepth,
+SQLdepth, MonoViT, DIFFNet: `encoder.pth` with the reference's
+height/width/use_stereo entries and the torchvision classifier, `depth.pth`
+(the MonoViT and DIFFNet decoders with their `decoder.*` ModuleList
+aliases), `pose_encoder.pth`, `pose.pth`, from seeded port modules and the
+replicas) are written with
 torch.save, then loaded by the JAX package's `load_pretrained_encoder` /
 `IMPORTERS` and by the port's. The JAX result, carried to torch's layout by
 models/convert.py::from_jax, must equal the port's networks exactly: both
@@ -38,7 +43,14 @@ from baseboostdepth_tpu_torch.models.torch_import import (
 )
 from baseboostdepth_tpu_torch.utils import download as dl
 from tests.test_torch_port_zoos import depth_to_flax, perturb_, pose_to_flax
-from tests.torch_zoo_refs import make_ca_decoder, make_resnet50, make_sql_encoder, make_sql_head
+from tests.torch_mpvit_ref import mpvit_small
+from tests.torch_zoo_refs import (
+    make_ca_decoder,
+    make_hrnet18,
+    make_resnet50,
+    make_sql_encoder,
+    make_sql_head,
+)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -104,6 +116,15 @@ def _write_folder(folder, zoo, num_layers=18, seed=2):
     if zoo == "sql":
         enc = _seeded(make_sql_encoder, seed).state_dict()
         depth = _seeded(make_sql_head, seed + 1).state_dict()
+    elif zoo in ("monovit", "diffnet"):
+        enc = _seeded(mpvit_small if zoo == "monovit" else make_hrnet18, seed).state_dict()
+        dec = build_depth_net(zoo, generator=gen).decoder
+        perturb_(dec, gen)
+        depth = dec.state_dict()
+        # the reference decoders' ModuleList over their convs ModuleDict
+        depth.update({f"decoder.{i}.{k.split('.', 2)[2]}": v for i, name in
+                      enumerate(dec.convs) for k, v in depth.items()
+                      if k.startswith(f"convs.{name}.")})
     elif zoo == "cadepth":
         enc = _prefixed(_seeded(make_resnet50, seed).state_dict(), "encoder.")
         depth = _seeded(make_ca_decoder, seed + 1).state_dict()
@@ -186,11 +207,6 @@ def test_pretrained_encoder_matches_jax(tmp_path, zoo):
             assert torch.equal(v, before[k]), f"{k} changed"
     w = load_torch_state_dict(rn18)["conv1.weight"]
     assert torch.equal(pose_net.encoder.encoder.conv1.weight, torch.cat([w, w], 1) / 2)
-
-
-def test_pretrained_encoder_refuses_unported_zoos(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_pretrained_encoder(None, None, str(tmp_path / "x.pth"), "monovit")
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,18 @@ from baseboostdepth_tpu_torch.data import augment as ta
 from baseboostdepth_tpu_torch.ops import resize as tr
 from baseboostdepth_tpu_torch.ops import ssim as ts
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs files in parallel processes, and
+    torch's default pool (one thread per core) in each oversubscribes the
+    CPU and slows every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-5
 
 

@@ -26,6 +26,18 @@ from baseboostdepth_tpu.training.step import init_disp_bias as jax_init_disp_bia
 from baseboostdepth_tpu_torch.models.convert import from_jax
 from baseboostdepth_tpu_torch.training.step import init_disp_bias
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs files in parallel processes, and
+    torch's default pool (one thread per core) in each oversubscribes the
+    CPU and slows every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 H, W = 64, 128
 RTOL = 1e-4
 

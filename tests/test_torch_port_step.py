@@ -1,7 +1,7 @@
 """Port parity: one training step of baseboostdepth_tpu_torch against
 baseboostdepth_tpu, the slice as a whole.
 
-64x128, B=2, fp32, the same weights (the port's init, carried to JAX by the
+B=2, fp32, the same weights (the port's init, carried to JAX by the
 JAX package's reference-checkpoint importers; JAX's gradients come back
 through models/convert.py), the same batch and the same automask noise.
 The JAX side runs the corner-plane Pallas kernel in interpret mode
@@ -25,6 +25,12 @@ kernel options:
       mode; the port: the plain versions of `ops/warp_planes.py`'s
       kernels). Same tolerances.
 
+(a)-(c) run at 32x64, (d) at 64x64. JAX traces and compiles the
+interpret-mode Pallas warps in time that grows with the image (at 64x128
+case (a) took 44 s to trace and compile and 2 s to run either step; at
+32x64 20 s); at 32x64 case (d)'s float-planes warp puts the encoder's conv1
+gradient 6.8e-5 off, past the bound below, at 64x64 1.4e-6.
+
 Tolerances: total and per-scale losses 1e-5 relative; BN statistics 1e-4
 relative, with a floor of 1e-5 of each tensor's largest entry for batch
 means that nearly cancel. Gradients, per entry, 1e-4 relative plus 2e-5
@@ -35,12 +41,13 @@ smooth: the min over candidates and the floor inside the bilinear warp
 switch branch where two candidates tie or a coordinate crosses an integer,
 and the two packages' disparities differ by ~1e-6 (float32 convolutions
 summed in another order), which flips such a branch at a few pixels.
-Measured on these inputs: entries differ by at most 8.9e-6 (early stage,
-the encoder's conv1 weight, whose gradient reaches 7.9e-3); per tensor the
-relative L2 difference is at most 1.9e-3 in the early stage (apart from
-the one-entry scale-2 disparity bias, whose gradient nearly cancels to
-6.8e-7 and differs by 6.1e-8) and 1.03e-2 in the late stage (BN weights of
-the first block, gradients ~5e-5). Adam's first step is
+Measured on these inputs: entries differ by at most 6.4e-6 in (a) (the
+encoder's conv1 weight, whose gradient reaches 1.7e-2) and 1.8e-6 in (b)
+and (c); per tensor the relative L2 difference (of tensors whose gradient
+exceeds 1e-5) is at most 8.1e-4 in (a) and 6.6e-3 in (b) and (c) (BN
+biases of the first block, gradients ~1.2e-4); in (d) 1.4e-6 (the conv1
+weight again, gradient up to 9.3e-3) and 2.6e-4 (the first block's BN
+weight). Adam's first step is
 lr * g / (|g| + 1e-8): every entry of the port's update is held to that
 formula on its own gradient (1e-6), and to JAX's updated parameters (1e-6)
 where |g| > 4e-5, so that the gradients' signs agree. Two JAX compilations:
@@ -67,24 +74,42 @@ from baseboostdepth_tpu_torch.models.pose import realistic_pose_bias_
 from baseboostdepth_tpu_torch.training.batch import make_batch, num_frames
 from baseboostdepth_tpu_torch.training.step import StepStatic, init_state, make_train_step
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs files in parallel processes, and
+    torch's default pool (one thread per core) in each oversubscribes the
+    CPU and slows every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 H, W, B = 64, 128, 2
 LR, ADAM_EPS = 1e-4, 1e-8  # make_optimizer defaults; the schedule is flat at step 0
 GRAD_ATOL = 2e-5  # per entry, with rtol 1e-4
 GRAD_LEAF_RTOL, GRAD_LEAF_RMS = 3e-2, 1e-7  # per leaf, L2
 
+# image size of a case: JAX traces and compiles the interpret-mode Pallas
+# warp in time that grows with it (the early case at 64x128: 44 s of trace
+# and compile against 2 s of running either step), so the cases run at
+# 32x64 but the float-frames one at 64x64: at 32x64 its float-planes warp
+# gradient crosses the bound (the conv1 weight's by 6.8e-5)
+SMALL = (32, 64)
 STAGES = {
     "early_F2_direct": dict(F=2, scales=(0, 1, 2, 3), incremental=False, partial=False,
-                            f_max=(2, 1)),
+                            f_max=(2, 1), hw=SMALL),
     "late_F3_incremental_partial": dict(F=3, scales=(0,), incremental=True, partial=True,
-                                        f_max=(3, 2)),
+                                        f_max=(3, 2), hw=SMALL),
     "late_F3_fused_packed": dict(F=3, scales=(0,), incremental=True, partial=True,
-                                 f_max=(3, 2), photo_impl="fused", warp_impl="pallas"),
+                                 f_max=(3, 2), photo_impl="fused", warp_impl="pallas", hw=SMALL),
     "early_F2_float": dict(F=2, scales=(0, 1, 2, 3), incremental=False, partial=False,
-                           f_max=(2, 1), float_frames=True),
+                           f_max=(2, 1), float_frames=True, hw=(64, 64)),
 }
 
 
-def _smooth_frames(rng, NF):
+def _smooth_frames(rng, NF, H=H, W=W):
     """Smooth textured uint8 frames: each a sum of random plane waves.
 
     Bilinear warping is not differentiable at integer coordinates, and the
@@ -105,10 +130,11 @@ def _smooth_frames(rng, NF):
     return np.clip(np.rint(img), 0, 255).astype(np.uint8).transpose(0, 1, 3, 4, 2)
 
 
-def _batch(F, f_max, seed, float_frames=False):
+def _batch(F, f_max, seed, float_frames=False, hw=(H, W)):
+    H, W = hw
     rng = np.random.default_rng(seed)
     NF = num_frames(F)
-    frames = _smooth_frames(rng, NF)
+    frames = _smooth_frames(rng, NF, H, W)
     for b in range(B):  # loader contract: out-of-window frames copy frame 0
         for o in range(-F, F + 1):
             if abs(o) > f_max[b]:
@@ -153,13 +179,14 @@ def _close(actual, desired, rtol, atol=0.0, what=""):
 @pytest.mark.parametrize("stage", list(STAGES))
 def test_train_step_matches_jax(stage):
     cfg = STAGES[stage]
+    H, W = cfg["hw"]
     kw = dict(height=H, width=W, F=cfg["F"], scales=cfg["scales"], trimin=True,
               incremental=cfg["incremental"], partial=cfg["partial"], decomp=True,
               pose_error=5.5, dtype="float32", photo_impl=cfg.get("photo_impl", "xla"))
     jst = JaxStepStatic(warp_impl=cfg.get("warp_impl", "corner"), merged_warp=True, **kw)
     tst = StepStatic(warp_impl=cfg.get("warp_impl", "auto"), **kw)
     batch = _batch(cfg["F"], cfg["f_max"], seed=cfg["F"],
-                   float_frames=cfg.get("float_frames", False))
+                   float_frames=cfg.get("float_frames", False), hw=cfg["hw"])
     assert batch["frames"].dtype == (np.float32 if cfg.get("float_frames") else np.uint8)
 
     # ---- weights: the port's init from seed 0, the pose head biased to

@@ -175,11 +175,10 @@ def test_cli_trains_one_epoch_and_resumes(tiny_kitti):
 
 
 # log.syns_val runs since the eval slice (tests/test_torch_port_cli_eval.py::
-# test_trainer_syns_val_logs_syns_metrics); the five overrides this slice
-# ports run in test_lifted_configuration_builds, and diffnet joins monovit
-@pytest.mark.parametrize("override", [
-    ("dist", "enabled", True), ("model", "zoo", "monovit"), ("model", "zoo", "diffnet"),
-])
+# test_trainer_syns_val_logs_syns_metrics); the lifted overrides run in
+# test_lifted_configuration_builds, the monovit and diffnet zoos in
+# tests/test_torch_port_vit_trainer.py
+@pytest.mark.parametrize("override", [("dist", "enabled", True)])
 def test_unported_configuration_raises(tiny_kitti, override):
     data, splits, logs = tiny_kitti
     cfg = _config(data, splits, logs, "refused")

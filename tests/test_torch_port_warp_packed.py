@@ -30,6 +30,18 @@ from baseboostdepth_tpu_torch.ops import cuda_build
 from baseboostdepth_tpu_torch.ops import sampling as tsampling
 from baseboostdepth_tpu_torch.ops import warp_cuda as tw
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the suite runs files in parallel processes, and
+    torch's default pool (one thread per core) in each oversubscribes the
+    CPU and slows every worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # (lead, H, W): not multiples of the TPU's (8, 128) tiles; one with a
 # leading slot axis
 SHAPES = [((2,), 20, 200), ((2, 3), 9, 45)]

@@ -38,6 +38,10 @@ from baseboostdepth_tpu.models.resnet import encoder_channels as jax_encoder_cha
 from baseboostdepth_tpu.models.torch_import import (
     cadepth_decoder_torch_to_flax,
     depth_decoder_torch_to_flax,
+    diffnet_decoder_torch_to_flax,
+    hrnet18_torch_to_flax,
+    monovit_decoder_torch_to_flax,
+    mpvit_torch_to_flax,
     pose_decoder_torch_to_flax,
     resnet_torch_to_flax,
     sql_encoder_torch_to_flax,
@@ -80,6 +84,13 @@ def sub(sd, prefix):
 def depth_to_flax(zoo, depth_sd):
     """A port depth network's state_dict -> the JAX zoo's (params, stats)."""
     d = _np(depth_sd)
+    if zoo == "monovit":
+        p, s = mpvit_torch_to_flax(sub(d, "encoder."))
+        return ({"encoder": p, "decoder": monovit_decoder_torch_to_flax(sub(d, "decoder."))},
+                {"encoder": s})
+    if zoo == "diffnet":
+        p, s = hrnet18_torch_to_flax(sub(d, "encoder."))
+        return {"encoder": p, **diffnet_decoder_torch_to_flax(sub(d, "decoder."))}, {"encoder": s}
     if zoo in ("sql", "sql_large"):
         p, s = sql_encoder_torch_to_flax(sub(d, "encoder."))
         p["head"] = sql_head_torch_to_flax(sub(d, "head."))
