@@ -106,11 +106,12 @@ class OptimConfig:
 
 @dataclass
 class DistConfig:
-    """Multi-process data parallelism (set all three fields explicitly for
-    a cluster that announces nothing)."""
+    """Multi-process data parallelism, one process per GPU (set all three
+    fields explicitly for a cluster that announces nothing; without them
+    the process group comes from torch.distributed.run's environment)."""
 
     enabled: bool = False
-    coordinator: Optional[str] = None  # "host:port" of process 0
+    coordinator: Optional[str] = None  # "host:port" of process 0, or an init URL (file://...)
     num_processes: Optional[int] = None
     process_id: Optional[int] = None
 

@@ -51,6 +51,7 @@ from torch import nn
 
 from baseboostdepth_tpu_torch.models.depth_decoder import ConvBlock, ReflectConv3x3
 from baseboostdepth_tpu_torch.models.resnet import BatchNorm2d
+from baseboostdepth_tpu_torch.parallel.sharding import draw_local
 
 _LN_EPS = 1e-6
 #: (window, heads) of the relative position encoding (mpvit.py:453)
@@ -61,11 +62,12 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
               generator: Optional[torch.Generator]) -> torch.Tensor:
     """Stochastic depth: each sample's x is zeroed with probability `rate`,
     else scaled by 1/(1 - rate); one mask entry per sample, from
-    `generator`."""
+    `generator`, drawn at the global batch in a process group (this rank's
+    rows of the one-process draw)."""
     if not training or rate == 0.0:
         return x
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    keep = torch.rand(shape, generator=generator, device=x.device) >= rate
+    keep = draw_local(torch.rand, shape, generator=generator, device=x.device) >= rate
     return x * keep.to(x.dtype) * (1.0 / (1.0 - rate))
 
 

@@ -13,7 +13,9 @@ images is fine).
 BatchNorm keeps the JAX package's numbers: momentum 0.1 here is flax's 0.9,
 statistics are reduced in float32 whatever the compute dtype, and the
 running variance takes the *biased* batch variance (nn.BatchNorm2d would
-take the unbiased one).
+take the unbiased one). In a process group of more than one rank its
+train-mode statistics are those of the global batch, as under the JAX
+package's data mesh (flax's fast variance, E[x^2] - E[x]^2).
 """
 
 from __future__ import annotations
@@ -24,13 +26,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from baseboostdepth_tpu_torch.parallel.sharding import all_reduce_sum, world_size
+
 _BN_MOMENTUM = 0.1  # torch convention; flax momentum 0.9
 _BN_EPS = 1e-5
 
 
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d with flax's running-statistics update (biased batch
-    variance, float32 statistics)."""
+    variance, float32 statistics); over the global batch when the process
+    group has more than one rank."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=_BN_EPS, momentum=_BN_MOMENTUM)
@@ -41,12 +46,37 @@ class BatchNorm2d(nn.BatchNorm2d):
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 False, 0.0, self.eps,
             )
+        if world_size() > 1:
+            return self._global_batch_norm(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
             self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Train-mode BN over every rank's rows: the per-channel sums of x
+        and x^2 and the count, in float32 (float64 for a float64 input),
+        summed over the ranks by one autograd-aware all_reduce, whose
+        backward sums the cotangents, so the gradients are the global
+        batch's too; mean and var = E[x^2] - E[x]^2 (clamped at 0) as flax's
+        fast variance forms them."""
+        acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+        xf = x.to(acc)
+        C = x.shape[1]
+        count = torch.full((1,), xf.numel() // C, dtype=acc, device=x.device)
+        sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]))
+        n = sums[2 * C]
+        mean = sums[:C] / n
+        var = torch.clamp(sums[C:2 * C] / n - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        scale = torch.rsqrt(var + self.eps) * self.weight.to(acc)
+        shift = self.bias.to(acc) - mean * scale
+        return (xf * scale.view(1, C, 1, 1) + shift.view(1, C, 1, 1)).to(x.dtype)
 
 
 class BasicBlock(nn.Module):

@@ -41,14 +41,17 @@ from torch import nn
 
 from baseboostdepth_tpu_torch.models.resnet import BatchNorm2d, ResnetEncoder
 from baseboostdepth_tpu_torch.ops.resize import resize_bilinear_align_corners
+from baseboostdepth_tpu_torch.parallel.sharding import draw_local
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout at rate p, its mask drawn from `generator`."""
+    """Inverted dropout at rate p, its mask drawn from `generator` (at the
+    global batch in a process group: this rank's rows of the one-process
+    draw; x's leading axis is the batch)."""
     if not training or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    keep = draw_local(torch.rand, x.shape, generator=generator, device=x.device) >= p
     return x * keep.to(x.dtype) * (1.0 / (1.0 - p))
 
 

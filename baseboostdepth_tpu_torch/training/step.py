@@ -54,6 +54,12 @@ from baseboostdepth_tpu_torch.device import require_device
 from baseboostdepth_tpu_torch.models import DEPTH_IS_METRIC, build_depth_net, build_pose_net
 from baseboostdepth_tpu_torch.ops.resize import lanczos_pyramid, resize_bilinear
 from baseboostdepth_tpu_torch.ops.sampling import bilinear_sample, resolve_warp
+from baseboostdepth_tpu_torch.parallel.sharding import (
+    average_gradients_,
+    draw_local,
+    local_rows,
+    world_size,
+)
 from baseboostdepth_tpu_torch.training.batch import num_temporal_slots
 from baseboostdepth_tpu_torch.training.optim import make_optimizer, make_vit_optimizer
 
@@ -350,7 +356,12 @@ def loss_forward(
 
     batch: the training/batch.py dict as tensors on one device. noise: the
     automask noise [B, 1, H, W], already scaled by 1e-5; drawn from
-    `generator` when not given.
+    `generator` when not given. In a process group of W ranks the batch is
+    this rank's rows of the global batch, the noise is drawn (or given) at
+    the global batch [W*B, 1, H, W] and this rank takes its rows, and the
+    networks' BatchNorm reduces over the global batch; the loss is this
+    rank's share, whose gradient averaged over the ranks is the global
+    batch's.
     """
     H, W, F = st.height, st.width, st.F
     NF = 2 * F + 2
@@ -394,7 +405,12 @@ def loss_forward(
 
     ident_l = photo_losses(sources, slot_valid)
     if noise is None:
-        noise = torch.randn((B, 1, H, W), generator=generator, device=device) * 1e-5
+        noise = draw_local(torch.randn, (B, 1, H, W), generator=generator, device=device) * 1e-5
+    elif world_size() > 1:
+        if noise.shape[0] != B * world_size():
+            raise ValueError(f"noise has {noise.shape[0]} rows; the global batch has "
+                             f"{B * world_size()}")
+        noise = local_rows(noise)
 
     pyramid = lanczos_pyramid(target, num_scales=max(st.scales) + 1)
 
@@ -471,7 +487,10 @@ def make_train_step(st: StepStatic, device="cuda"):
     The step moves the batch (numpy arrays or tensors) to `device`, runs
     loss_forward in train mode, back-propagates, takes one Adam step and one
     scheduler step, and advances state.step; the networks, BatchNorm
-    statistics and optimizer state are updated in place.
+    statistics and optimizer state are updated in place. In a process group
+    the batch is this rank's rows, the gradients are averaged over the
+    ranks before the update (`parallel.average_gradients_`), and the
+    metrics are this rank's.
     """
     device = require_device(device)
 
@@ -482,6 +501,7 @@ def make_train_step(st: StepStatic, device="cuda"):
             state.depth_net, state.pose_net, tb, st, generator=generator, noise=noise
         )
         loss.backward()
+        average_gradients_([*state.depth_net.parameters(), *state.pose_net.parameters()])
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1

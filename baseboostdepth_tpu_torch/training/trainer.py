@@ -1,5 +1,5 @@
-"""Trainer orchestration on one device: epochs, curriculum stages,
-validation, checkpointing, logging; the counterpart of
+"""Trainer orchestration: epochs, curriculum stages, validation,
+checkpointing, logging; the counterpart of
 `baseboostdepth_tpu/training/trainer.py`.
 
 Role parity with the reference Trainer (trainer.py:29-284): the curriculum
@@ -19,9 +19,17 @@ the depth encoder at `optim.vit_encoder_lr`), cadepth, diffnet and sql /
 sql_large, with `model.merged_warp`, `model.pose_input_scale` and
 `model.weights_init pretrained` (ImageNet encoders from
 `model.pretrained_path`, or torchvision's ResNet files,
-models/torch_import.py). Not ported yet, and refused with
-NotImplementedError rather than ignored (see `check_supported`):
-multi-process training (ROADMAP.md, A6).
+models/torch_import.py).
+
+Data parallelism (`dist.enabled`, one process per GPU, the process group
+joined first by cli/train.py): every rank loads its rows of each global
+batch, starts from rank 0's state (`parallel.broadcast_state_` after init,
+the pretrained load and the restore) and takes the global-batch step;
+the ranks check that they see the same latest checkpoint, average the
+metrics at every log step (so all take the non-finite branch together),
+and only the lead (rank 0) writes the config, logs and checkpoints, runs
+the validations and draws panels (those only in a world of one), as the
+JAX trainer's lead process does.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from baseboostdepth_tpu_torch.device import require_device
 from baseboostdepth_tpu_torch.evaluation.metrics import METRIC_NAMES, single_image_errors
 from baseboostdepth_tpu_torch.evaluation.syns import evaluate_syns
 from baseboostdepth_tpu_torch.models import DEPTH_IS_METRIC
+from baseboostdepth_tpu_torch.parallel import sharding
 from baseboostdepth_tpu_torch.training.checkpoint import CheckpointManager
 from baseboostdepth_tpu_torch.training.step import (
     StepStatic,
@@ -54,15 +63,6 @@ from baseboostdepth_tpu_torch.training.step import (
     make_train_step,
 )
 from baseboostdepth_tpu_torch.utils import resolve_splits_dir, sec_to_hm_str
-
-
-def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for configuration this port does not run
-    yet, instead of training something else than asked."""
-    if cfg.dist.enabled:
-        raise NotImplementedError(
-            "not ported to baseboostdepth_tpu_torch yet (see ROADMAP.md, 'Open items'): "
-            "dist.enabled (multi-GPU training, A6)")
 
 
 def step_seed(seed: int, global_step: int) -> int:
@@ -146,7 +146,15 @@ class MetricLogger:
 class Trainer:
     def __init__(self, cfg: Config, device="cuda"):
         self.device = require_device(device)
-        check_supported(cfg)
+        if cfg.dist.enabled and not sharding.is_initialized():
+            raise ValueError("dist.enabled: join the process group first "
+                             "(parallel.initialize_distributed; cli/train.py does)")
+        # the JAX trainer's process_index / process_count
+        self.process_index = sharding.rank()
+        self.process_count = sharding.world_size()
+        self.is_lead = self.process_index == 0
+        if self.process_count > 1 and self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         if cfg.data.height % 32 or cfg.data.width % 32:
             raise ValueError("height/width must be multiples of 32")
         # the reference's curriculum path always adds the stereo frame for
@@ -156,7 +164,8 @@ class Trainer:
         self.cfg = cfg
         self.log_path = os.path.join(cfg.log.log_dir, cfg.log.model_name)
         os.makedirs(self.log_path, exist_ok=True)
-        cfg.save(os.path.join(self.log_path, "config.json"))
+        if self.is_lead:
+            cfg.save(os.path.join(self.log_path, "config.json"))
 
         split_dir = os.path.join(resolve_splits_dir(cfg.data.splits_dir), cfg.data.split)
         train_file = os.path.join(split_dir, "train_files_baselines.txt")
@@ -195,6 +204,8 @@ class Trainer:
         self.start_batch = 0
         self.best_abs_rel = 10.0
         latest = self.ckpt.latest_step()
+        if self.process_count > 1:
+            self._check_latest_step(latest)
         if latest is not None:
             _, extra = self.ckpt.restore(self.state, latest)
             extra = extra or {}
@@ -214,10 +225,27 @@ class Trainer:
             self.best_abs_rel = float(extra.get("best_abs_rel", 10.0))
             print(f"resumed from step {latest} (epoch {self.start_epoch}, "
                   f"batch {self.start_batch}, best_abs_rel {self.best_abs_rel:.4f})")
+        sharding.broadcast_state_([self.state.depth_net, self.state.pose_net])
 
         self._step_fns: Dict[StepStatic, object] = {}
         self._eval_fns: Dict[object, object] = {}
-        self.logger = MetricLogger(self.log_path, cfg.log.wandb, cfg.to_dict())
+        self.logger = (MetricLogger(self.log_path, cfg.log.wandb, cfg.to_dict())
+                       if self.is_lead else None)
+
+    def _check_latest_step(self, latest: Optional[int]) -> None:
+        """Checkpoints are written by the lead only, but every rank restores
+        the latest one it sees. On a checkpoint directory that the ranks do
+        not share, a rank would resume elsewhere than the lead, and the
+        loaders and collectives would fall out of step: every rank raises
+        instead when any rank's latest step differs from the lead's."""
+        mine = -1 if latest is None else int(latest)
+        lead = sharding.broadcast_int(mine)
+        differs = sharding.all_reduce_mean([torch.tensor([float(mine != lead)])])[0]
+        if float(differs) > 0:
+            raise RuntimeError(
+                f"process {self.process_index} sees checkpoint step {mine} and the lead "
+                f"{lead}, or another process differs from the lead: the checkpoint dir "
+                f"({self.ckpt.directory}) must be on a filesystem shared by all processes")
 
     def _load_pretrained(self) -> None:
         """ImageNet encoders (the JAX trainer's pretrained branch): an explicit
@@ -272,7 +300,9 @@ class Trainer:
         return self._step_fns[st]
 
     def _save(self, global_step: int, extra: dict) -> None:
-        self.ckpt.save(global_step, self.state, dict(extra, best_abs_rel=self.best_abs_rel))
+        """A checkpoint, written by the lead only."""
+        if self.is_lead:
+            self.ckpt.save(global_step, self.state, dict(extra, best_abs_rel=self.best_abs_rel))
 
     # ------------------------------------------------------------------
     def train(self):
@@ -294,7 +324,8 @@ class Trainer:
             except ValueError:
                 pass  # not the main thread
         print(f"training {cfg.log.model_name}: {len(self.train_index)} samples, "
-              f"{self.steps_per_epoch} steps/epoch, device {self.device}")
+              f"{self.steps_per_epoch} steps/epoch, device {self.device}, process "
+              f"{self.process_index} of {self.process_count}")
         try:
             for epoch in range(self.start_epoch, cfg.optim.num_epochs):
                 if not self._train_epoch(epoch, t0, stop_requested):
@@ -302,7 +333,8 @@ class Trainer:
         finally:
             for sig, h in old_handlers.items():
                 signal.signal(sig, h)
-        self.logger.close()
+        if self.logger is not None:
+            self.logger.close()
 
     def _train_epoch(self, epoch: int, t0: float, stop_requested) -> bool:
         """One epoch; False when a signal asked the run to stop."""
@@ -325,7 +357,8 @@ class Trainer:
             trimin=cfg.method.trimin, use_stereo=cfg.method.use_stereo,
             classic=not cfg.method.curriculum, num_workers=cfg.data.num_workers,
             prefetch=cfg.data.prefetch, seed=cfg.seed * 1000 + epoch, bucket_fs=bucket_fs,
-            skip_batches=skip,
+            skip_batches=skip, process_index=self.process_index,
+            process_count=self.process_count,
         )
         print(f"epoch {epoch}: F={st.F} scales={st.scales} cutoff={stage.cutoff:.2f} "
               f"incremental={st.incremental} partial={st.partial} decomp={st.decomp}")
@@ -349,20 +382,24 @@ class Trainer:
             if stop_requested["flag"]:
                 self._save(global_step, {"epoch": epoch, "batch_in_epoch": bi,
                                          "preempted": True})
-                print("emergency checkpoint written; exiting")
+                print("emergency checkpoint written; exiting" if self.is_lead else "exiting")
                 return False
 
             if bi % cfg.log.log_frequency == 0 and bi > 0:
-                m = {k: float(v) for k, v in metrics.items()}
+                # the global batch's metrics on every rank, so that all take
+                # the same branch below
+                m = dict(zip(metrics, map(float, sharding.all_reduce_mean(list(metrics.values())))))
                 if not all(v == v and abs(v) < 1e6 for v in m.values()):
                     self._save(global_step, {"epoch": epoch, "batch_in_epoch": bi, "nan": True})
                     raise FloatingPointError(f"non-finite loss at step {global_step}: {m}")
+                if not self.is_lead:
+                    continue
                 rate = seen / (time.time() - t_epoch)
                 m.update(epoch=epoch, imgs_per_sec=rate)
                 self.logger.log(global_step, m)
                 print(f"e{epoch} b{bi} loss {m['loss']:.4f} | {rate:5.1f} imgs/s | "
                       f"elapsed {sec_to_hm_str(time.time() - t0)}")
-                if cfg.log.image_panels:
+                if cfg.log.image_panels and self.process_count == 1:
                     self.save_image_panels(st_b, host_batch, seed, global_step)
                 if self.gt_depths is not None:
                     self.validate(st, global_step, epoch, bi, quick=cfg.log.quick_val_size)
@@ -371,7 +408,7 @@ class Trainer:
 
         # full validation at every epoch end (quick-val only subsamples the
         # in-epoch checks)
-        if self.gt_depths is not None:
+        if self.is_lead and self.gt_depths is not None:
             self.validate(st, global_step, epoch, -1)
         if (epoch + 1) % cfg.log.save_frequency == 0:
             self._save(global_step, {"epoch": epoch, "epoch_complete": True})

@@ -86,7 +86,18 @@ In order, it
      size), cli.evaluate_pose, cli.infer on a folder and cli.visualize;
      times predict_disparities and the chamfer search, and holds the card's
      chamfer distances against the CPU's;
- 11. prints timings (CUDA events, after warm-up) beside the card's name and
+ 11. data parallelism (--dist.enabled): two ranks on the one card in a
+     gloo group with CUDA tensors (NCCL refuses two ranks on one device),
+     each started as `chip_smoke.py --dist-child ...` at the main path's
+     full width (global batch 12, 6 a rank): a float32 late step held to
+     the one-process step on the global batch (loss, every averaged
+     gradient, BN statistics) and the ranks' parameters, statistics and
+     gradients bit-equal, then bf16 late and early steps timed, each rank's
+     kernel launches held to the step's counts; then cli.train
+     --dist.enabled under torch.distributed.run with one process (NCCL):
+     one epoch and a resumed second, checkpoints from the lead; prints the
+     NCCL version;
+ 12. prints timings (CUDA events, after warm-up) beside the card's name and
      power limit, a JSON line describing each kernel, and last
      {"ok": true, "device": {...}}.
 
@@ -1595,6 +1606,202 @@ def zoo_trainer_phase(torch, card, root):
     return {"launches": launches, "wall_s": walls}
 
 
+DIST_RANKS = 2  # dist_phase (a): two ranks on the one card
+DIST_TIMEOUT_S = 600
+
+
+def one_process_fast_variance_step():
+    """The one-process float32 late step with BatchNorm2d's global-batch
+    formula (E[x^2] - E[x]^2 of summed statistics, the path a W-rank run
+    takes) in place of F.batch_norm: the rounding baseline that the W-rank
+    check's bounds stand on."""
+    from baseboostdepth_tpu_torch import profile_step as ps
+    from baseboostdepth_tpu_torch.models import resnet
+
+    saved = resnet.world_size, resnet.all_reduce_sum
+    resnet.world_size, resnet.all_reduce_sum = (lambda: 2), (lambda x: x)
+    try:
+        return ps.float32_step("late_F7", B)
+    finally:
+        resnet.world_size, resnet.all_reduce_sum = saved
+
+
+def dist_child(rank: int, init: str, out: str) -> None:
+    """One rank of dist_phase (a), started by it as
+    `chip_smoke.py --dist-child RANK INIT OUT`: both ranks on cuda:0 in a
+    gloo group (NCCL refuses two ranks on one device). Rank 0 first
+    computes the one-process float32 step (TF32 off) of the late stage on
+    the global batch of B, then both run it on their rows: the global loss,
+    the averaged gradients and the BN statistics against the one-process
+    step, the replicas bit-equal. Then 3 bf16 steps of the late and 2 of
+    the early stage, timed, with the kernel launch counters set to 0 just
+    before each and read just after. Writes its results to OUT (JSON)."""
+    import torch
+    import torch.distributed as dist
+
+    from baseboostdepth_tpu_torch import profile_step as ps
+    from baseboostdepth_tpu_torch.parallel import sharding
+    from baseboostdepth_tpu_torch.training.step import main_path_static, make_train_step
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    ref = fast = None
+    if rank == 0:
+        ref, fast = ps.float32_step("late_F7", B), one_process_fast_variance_step()
+    dist.init_process_group("gloo", init_method=init, world_size=DIST_RANKS, rank=rank)
+    try:
+        got = ps.float32_step("late_F7", B)
+        result = {"rank": rank, "local_batch": B // DIST_RANKS,
+                  "replicas_bit_equal": ps.replicas_equal(
+                      [*got["params"].values(), *got["stats"].values(),
+                       *got["grads"].values()])}
+        if rank == 0:
+            result["float32_vs_one_process"] = ps.hold_to_reference(got, ref)
+            result["baseline_fast_variance_vs_one_process"] = ps.hold_to_reference(fast, ref)
+            result["float32_vs_one_process_fast_variance"] = ps.hold_to_reference(got, fast)
+        del got, ref, fast
+        torch.cuda.empty_cache()
+        for name, steps in (("late_F7", 3), ("early_F2", 2)):
+            st = main_path_static(name)
+            state, rows = ps.main_path_state(st, dev, B)
+            step = make_train_step(st, device=dev)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            calls = sharding.all_reduce_sum.calls
+            reset_launches()
+            times, losses = [], []
+            for _ in range(steps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                metrics = step(state, rows, generator=gen)
+                end.record()
+                losses.append(float(sharding.all_reduce_mean([metrics["loss"]])[0]))
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            result[name] = {"launches": read_launches(), "ms": times, "losses": losses,
+                            "expected": {n: steps * c
+                                         for n, c in expected_launches(st).items()},
+                            "bn_all_reduce_calls_per_step":
+                                (sharding.all_reduce_sum.calls - calls) / steps,
+                            "replicas_bit_equal": ps.replicas_equal(
+                                [*state.depth_net.state_dict().values(),
+                                 *state.pose_net.state_dict().values()])}
+            del state, rows
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(result, f)
+
+
+def dist_phase(torch, card, root):
+    """Data parallelism (--dist.enabled):
+    (a) two ranks on the one card, gloo with CUDA tensors (NCCL refuses two
+        ranks on one device): `dist_child` in two processes at the main
+        path's full width (640x192, global batch 12, 6 a rank), the float32
+        step held to the one-process step and the ranks' replicas
+        bit-equal, then bf16 steps timed (over gloo, which copies every
+        collective through the host: not a figure of NCCL), each rank's
+        kernel launches held to expected_launches;
+    (b) cli.train --dist.enabled under `python -m torch.distributed.run
+        --standalone --nproc_per_node 1` (NCCL): one epoch on the trees
+        under `root`, then a resumed second; the lead (process 0 of 1)
+        writes the checkpoints."""
+    from baseboostdepth_tpu_torch.training.checkpoint import CheckpointManager
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    outs = [os.path.join(root, f"dist_rank{r}.json") for r in range(DIST_RANKS)]
+    init = f"file://{os.path.join(root, 'dist_rdv')}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-child",
+                               str(r), init, outs[r]], cwd=here, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(DIST_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    gloo_s = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"dist rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    parity = ranks[0]["float32_vs_one_process"]
+    check(parity["ok"] and all(r["replicas_bit_equal"] for r in ranks),
+          f"dist (a): {DIST_RANKS} gloo ranks vs one process: {parity}, replicas "
+          f"{[r['replicas_bit_equal'] for r in ranks]}")
+    runs = {}
+    for r in ranks:
+        for name in ("late_F7", "early_F2"):
+            got = r[name]
+            check(got["launches"] == got["expected"] and got["replicas_bit_equal"]
+                  and all(np.isfinite(got["losses"])),
+                  f"dist (a) rank {r['rank']} {name}: launches {got['launches']}, expected "
+                  f"{got['expected']}, replicas equal {got['replicas_bit_equal']}, losses "
+                  f"{got['losses']}")
+            runs[f"dist_gloo_rank{r['rank']}_{name}"] = {"launches": got["launches"]}
+    print(f"dist (a), gloo with CUDA tensors, {DIST_RANKS} ranks on one card, global batch "
+          f"{B}: float32 late_F7 step vs one process {json.dumps(parity)}; replicas bit-equal")
+    for key in ("baseline_fast_variance_vs_one_process", "float32_vs_one_process_fast_variance"):
+        print(f"dist (a) {key}: {json.dumps(ranks[0][key])}")
+    for r in ranks:
+        for name in ("late_F7", "early_F2"):
+            got = r[name]
+            print(f"timing dist (a) gloo rank {r['rank']} {name} ms/step (CUDA events, "
+                  f"{B // DIST_RANKS} images a rank): {[round(t, 2) for t in got['ms']]}, "
+                  f"losses {[round(v, 6) for v in got['losses']]}, "
+                  f"{got['bn_all_reduce_calls_per_step']:.0f} BN all-reduce calls a step "
+                  f"(forward; as many backward), launches "
+                  f"{ {n: c for n, c in got['launches'].items() if c} } [{card}; gloo]")
+
+    # (b) the CLI under torch.distributed.run, NCCL
+    argv = ["--data.kt_path", os.path.join(root, "raw"),
+            "--data.splits_dir", os.path.join(root, "splits"),
+            "--log.log_dir", os.path.join(root, "logs"), "--log.model_name", "smoke_dist",
+            "--log.log_frequency", "2", "--log.image_panels", "False", "--dist.enabled", "True"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "-m", "baseboostdepth_tpu_torch.cli.train", *argv]
+    walls, texts = [], []
+    for epochs in (1, 2):
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd + ["--optim.num_epochs", str(epochs)], cwd=here, env=env,
+                             capture_output=True, text=True, timeout=DIST_TIMEOUT_S)
+        walls.append(time.perf_counter() - t0)
+        check(out.returncode == 0, f"dist (b) epoch {epochs - 1}: exit {out.returncode}\n"
+                                   f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+        texts.append(out.stdout)
+    check("process 0 of 1" in texts[0] and "resumed from step 4" in texts[1],
+          f"dist (b): runs printed {texts}")
+    ckpt = CheckpointManager(os.path.join(root, "logs", "smoke_dist", "checkpoints"))
+    check(ckpt.all_steps() == [4, 8], f"dist (b): checkpoints {ckpt.all_steps()}")
+    saved, extra = ckpt.restore(None)
+    check(saved["step"] == 8 and extra.get("epoch") == 1,
+          f"dist (b): last checkpoint step {saved['step']}, metadata {extra}")
+    with open(os.path.join(root, "logs", "smoke_dist", "metrics.jsonl")) as f:
+        logged = [json.loads(ln) for ln in f]
+    check(len(logged) == 2 and all(np.isfinite(m["loss"]) for m in logged),
+          f"dist (b): metrics lines {logged}")
+    v = torch.cuda.nccl.version()
+    nccl = v if isinstance(v, int) else ".".join(map(str, v))
+    print(f"dist (b): cli.train --dist.enabled under torch.distributed.run --nproc_per_node 1, "
+          f"NCCL {nccl}: epoch 0 then resumed epoch 1, checkpoints {ckpt.all_steps()} from "
+          f"the lead, logged losses {[round(m['loss'], 6) for m in logged]}; wall clock "
+          f"{[round(w, 2) for w in walls]} s (process start, networks' init, 4 steps, "
+          f"checkpoint) [{card}]")
+    return runs, {"gloo_float32_check": parity,
+                  "baseline_fast_variance_vs_one_process":
+                      ranks[0]["baseline_fast_variance_vs_one_process"],
+                  "gloo_s": gloo_s, "nccl": nccl, "cli_nccl_s": walls}
+
+
 def finite_metrics(what, result: dict) -> dict:
     check(result and all(np.isfinite(v) for v in result.values()), f"{what}: metrics {result}")
     return result
@@ -1859,6 +2066,9 @@ def main() -> int:
         runs["trainer"] = trainer_phase(torch, card, runs["early_F2"]["ms_per_step"], root)
         runs["trainer_zoos"] = zoo_trainer_phase(torch, card, root)
         evals = eval_phase(torch, card, root)
+        torch.cuda.empty_cache()
+        dist_runs, dist_stats = dist_phase(torch, card, root)
+        runs.update(dist_runs)
     launches = {n: sum(r["launches"][n] for r in runs.values()) for n in KERNELS}
     check(all(launches.values()), f"a kernel of the path never launched: {launches}")
 
@@ -1889,6 +2099,7 @@ def main() -> int:
             "launches_by_run": {run: r["launches"][name] for run, r in runs.items()},
         })
     print(f"eval path: {json.dumps(evals)} [{card}]")
+    print(f"dist: {json.dumps(dist_stats)} [{card}]")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start of main to the "
           "kernels' line")
     print(card)
@@ -1900,4 +2111,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-child"]:
+        dist_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

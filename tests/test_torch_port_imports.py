@@ -67,6 +67,8 @@ def test_every_port_module_was_imported(probe):
                  "baseboostdepth_tpu_torch.models.diffnet",
                  "baseboostdepth_tpu_torch.data.synthetic",
                  "baseboostdepth_tpu_torch.training.optim",
-                 "baseboostdepth_tpu_torch.profile_step"):
+                 "baseboostdepth_tpu_torch.profile_step",
+                 "baseboostdepth_tpu_torch.parallel",
+                 "baseboostdepth_tpu_torch.parallel.sharding"):
         assert name in imported
-    assert len(imported) >= 53
+    assert len(imported) >= 55

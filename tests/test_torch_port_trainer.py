@@ -1,7 +1,9 @@
 """The port's training entry point on the CPU: Trainer, checkpoints and
 cli.train, mirroring tests/test_trainer_e2e.py and tests/test_checkpoint.py
-for the JAX package (device="cpu", 32x64, batch 8, float32), plus the
-configuration the port refuses and `_static_for_stage` against JAX's.
+for the JAX package (device="cpu", 32x64, batch 8, float32), plus
+`_static_for_stage` against JAX's. Since the port refuses no configuration
+any more, `dist.enabled` (two processes) is tested in
+tests/test_torch_port_dist.py.
 """
 
 import glob
@@ -172,20 +174,6 @@ def test_cli_trains_one_epoch_and_resumes(tiny_kitti):
     assert tr2.start_epoch == 1 and tr2.state.step == 4
     assert tr2.ckpt.all_steps() == [2, 4]
     assert not glob.glob(os.path.join(logs, "cli", "panels", "*"))
-
-
-# log.syns_val runs since the eval slice (tests/test_torch_port_cli_eval.py::
-# test_trainer_syns_val_logs_syns_metrics); the lifted overrides run in
-# test_lifted_configuration_builds, the monovit and diffnet zoos in
-# tests/test_torch_port_vit_trainer.py
-@pytest.mark.parametrize("override", [("dist", "enabled", True)])
-def test_unported_configuration_raises(tiny_kitti, override):
-    data, splits, logs = tiny_kitti
-    cfg = _config(data, splits, logs, "refused")
-    sec, field, value = override
-    setattr(getattr(cfg, sec), field, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, device="cpu")
 
 
 def _resnet_file(path, num_layers, seed=0):
