@@ -10,12 +10,12 @@ resnet_encoder.py:12-91, a torchvision ResNet under `.encoder`: `conv1`,
 (models/torch_import.py). Inputs are NCHW (a channels-last view of the NHWC
 images is fine).
 
-BatchNorm keeps the JAX package's numbers: momentum 0.1 here is flax's 0.9,
-statistics are reduced in float32 whatever the compute dtype, and the
-running variance takes the *biased* batch variance (nn.BatchNorm2d would
-take the unbiased one). In a process group of more than one rank its
-train-mode statistics are those of the global batch, as under the JAX
-package's data mesh (flax's fast variance, E[x^2] - E[x]^2).
+BatchNorm keeps the JAX package's numbers: momentum 0.1 here is flax's 0.9;
+train-mode statistics are flax's fast variance, E[x^2] - E[x]^2 of sums
+reduced in float32 (float64 for a float64 input) whatever the compute
+dtype, over the global batch in a process group of more than one rank, as
+under the JAX package's data mesh; the running variance takes that *biased*
+batch variance (nn.BatchNorm2d would take the unbiased one).
 """
 
 from __future__ import annotations
@@ -26,16 +26,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from baseboostdepth_tpu_torch.parallel.sharding import all_reduce_sum, world_size
+from baseboostdepth_tpu_torch.ops.batch_norm import batch_norm_train
 
 _BN_MOMENTUM = 0.1  # torch convention; flax momentum 0.9
 _BN_EPS = 1e-5
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """nn.BatchNorm2d with flax's running-statistics update (biased batch
-    variance, float32 statistics); over the global batch when the process
-    group has more than one rank."""
+    """nn.BatchNorm2d with flax's train-mode BatchNorm at any world size
+    (ops/batch_norm.py::batch_norm_train: fast variance E[x^2] - E[x]^2 of
+    float32 sums over the global batch, flax's order of apply, the running
+    statistics from the same biased variance); eval mode as nn.BatchNorm2d."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=_BN_EPS, momentum=_BN_MOMENTUM)
@@ -46,37 +47,10 @@ class BatchNorm2d(nn.BatchNorm2d):
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 False, 0.0, self.eps,
             )
-        if world_size() > 1:
-            return self._global_batch_norm(x)
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
-            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
-
-    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
-        """Train-mode BN over every rank's rows: the per-channel sums of x
-        and x^2 and the count, in float32 (float64 for a float64 input),
-        summed over the ranks by one autograd-aware all_reduce, whose
-        backward sums the cotangents, so the gradients are the global
-        batch's too; mean and var = E[x^2] - E[x]^2 (clamped at 0) as flax's
-        fast variance forms them."""
-        acc = torch.float64 if x.dtype == torch.float64 else torch.float32
-        xf = x.to(acc)
-        C = x.shape[1]
-        count = torch.full((1,), xf.numel() // C, dtype=acc, device=x.device)
-        sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]))
-        n = sums[2 * C]
-        mean = sums[:C] / n
-        var = torch.clamp(sums[C:2 * C] / n - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
-            self.num_batches_tracked.add_(1)
-        scale = torch.rsqrt(var + self.eps) * self.weight.to(acc)
-        shift = self.bias.to(acc) - mean * scale
-        return (xf * scale.view(1, C, 1, 1) + shift.view(1, C, 1, 1)).to(x.dtype)
+        return batch_norm_train(x, self.weight, self.bias, self.running_mean, self.running_var,
+                                self.momentum, self.eps)
 
 
 class BasicBlock(nn.Module):

@@ -15,7 +15,8 @@ kept by hand, PyTorch's way:
   of `replicate`) and stay equal: every rank applies the same averaged
   gradient (`average_gradients_`);
 - BatchNorm reduces its statistics over the global batch
-  (`all_reduce_sum`, autograd-aware, in models/resnet.py::BatchNorm2d);
+  (ops/batch_norm.py: one `all_reduce_sum` of its sums forward, one
+  all-reduce of its backward's sums);
 - random draws of a batch's leading shape are made at the global shape and
   sliced (`draw_local`), so the W-process run draws what the one-process
   run draws.

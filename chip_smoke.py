@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
 
 In order, it
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the CUDA kernels from ops/csrc/ (first use; the four libraries
+  2. builds the CUDA kernels from ops/csrc/ (first use; the five libraries
      in parallel), prints ptxas' register report and lists the kernels
      built; holds each kernel whose grid puts the images on its z axis
      (corner sweep, packed warp, float-planes warp, fused SSIM) against its
@@ -43,6 +43,11 @@ In order, it
      the JAX tool's numpy references exactly, on wrapped and out-of-range
      indices and clamped slice starts too, and times each (launch-bound at
      these shapes);
+  6b. holds the BatchNorm statistics kernel (bn_sums) against its plain
+     version at every input shape one late md2 step gives it and at ragged
+     shapes (each dtype, NCHW and channels-last), the train-mode BatchNorm
+     Function against the composed form forward and backward, and times
+     the kernel beside torch.batch_norm_stats and cuDNN's train-mode BN;
   7. checks the step on a small input against the same step on the CPU,
      with the default options, with photo_impl="fused", warp_impl="pallas",
      with float frames, with md2 ResNet-50, with CADepth (the two-call warp
@@ -63,7 +68,8 @@ In order, it
      two-group AdamW; the late stage also with the fused and packed
      kernels) and with DIFFNet, both merged; finite losses, moving
      parameters and BN statistics, and every kernel's launches counted in
-     each run and held to the counts the step's structure implies;
+     each run and held to the counts the step's structure implies
+     (bn_sums: one launch a train-mode BatchNorm call);
   9. writes KITTI-raw, SYNS and KITTI-odometry trees of random images at
      their published sizes under build/, exports the SYNS GT (cli.export_gt,
      test and val), and runs the training entry point (cli.train): one
@@ -89,16 +95,20 @@ In order, it
  11. data parallelism (--dist.enabled): two ranks on the one card in a
      gloo group with CUDA tensors (NCCL refuses two ranks on one device),
      each started as `chip_smoke.py --dist-child ...` at the main path's
-     full width (global batch 12, 6 a rank): a float32 late step held to
-     the one-process step on the global batch (loss, every averaged
-     gradient, BN statistics) and the ranks' parameters, statistics and
-     gradients bit-equal, then bf16 late and early steps timed, each rank's
+     full width (global batch 12, 6 a rank): a float32 late step of md2,
+     MonoViT, CADepth, DIFFNet and SQLdepth (cuDNN off: image-by-image
+     convolutions, profile_step.float32_step) each held to the
+     one-process step on the global batch (loss, every averaged gradient,
+     BN statistics; profile_step.hold_to_reference) and the ranks'
+     parameters, statistics and gradients
+     bit-equal, then md2's bf16 late and early steps timed, each rank's
      kernel launches held to the step's counts; then cli.train
      --dist.enabled under torch.distributed.run with one process (NCCL):
      one epoch and a resumed second, checkpoints from the lead; prints the
      NCCL version;
  12. prints timings (CUDA events, after warm-up) beside the card's name and
-     power limit, a JSON line describing each kernel, and last
+     power limit, bn_sums' line (its checks, times and launches on the
+     main path), a JSON line describing each kernel, and last
      {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -204,7 +214,9 @@ def kernel_wrappers():
 
 
 def reset_launches():
-    for fn in kernel_wrappers().values():
+    from baseboostdepth_tpu_torch.ops.batch_norm import bn_sums
+
+    for fn in (*kernel_wrappers().values(), bn_sums):
         fn.launches = 0
 
 
@@ -215,13 +227,14 @@ def read_launches() -> dict:
 def build():
     """Build the kernel libraries at once, one nvcc each; print ptxas'
     report of each."""
+    from baseboostdepth_tpu_torch.ops import batch_norm as bn
     from baseboostdepth_tpu_torch.ops import cuda_build
     from baseboostdepth_tpu_torch.ops import probe_cuda as pc
     from baseboostdepth_tpu_torch.ops import ssim_cuda as sc
     from baseboostdepth_tpu_torch.ops import warp_cuda as wc
     from baseboostdepth_tpu_torch.ops import warp_planes as wp
 
-    mods = (wc, sc, wp, pc)
+    mods = (wc, sc, wp, pc, bn)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:
         for f in [pool.submit(mod._lib) for mod in mods]:
@@ -232,7 +245,7 @@ def build():
             if ("ptxas info" in line and ("registers" in line or "Compiling" in line)
                     or "spill" in line):
                 print("build:", line.strip())
-    print(f"built kernels: {json.dumps(list(KERNELS))} ({build_s:.1f} s incl. load, "
+    print(f"built kernels: {json.dumps([*KERNELS, 'bn_sums'])} ({build_s:.1f} s incl. load, "
           f"{len(mods)} libraries built in parallel)")
 
 
@@ -1145,6 +1158,191 @@ def probe_phase(torch, card):
     return {"launches": launches}, stats
 
 
+class BatchNormCalls:
+    """Counts the train-mode calls of every BatchNorm2d of `nets` (forward
+    pre-hooks), to hold bn_sums' launches to them: every such call runs the
+    kernel once."""
+
+    def __init__(self, nets):
+        from baseboostdepth_tpu_torch.models.resnet import BatchNorm2d
+
+        self.calls = 0
+        self.hooks = [m.register_forward_pre_hook(self._count) for net in nets
+                      for m in net.modules() if isinstance(m, BatchNorm2d)]
+
+    def _count(self, module, args):
+        if module.training:
+            self.calls += 1
+
+    def remove(self):
+        for h in self.hooks:
+            h.remove()
+
+
+def capture_bn_inputs(torch) -> list:
+    """(shape, dtype, channels-last) of every train-mode BatchNorm2d call of
+    one late md2 step at full width (bf16 networks), and the largest input
+    itself, captured from the step's forward pass."""
+    from baseboostdepth_tpu_torch import profile_step as ps
+    from baseboostdepth_tpu_torch.models.resnet import BatchNorm2d
+    from baseboostdepth_tpu_torch.training.step import main_path_static, make_train_step
+
+    st = main_path_static("late_F7")
+    state, rows = ps.main_path_state(st, torch.device("cuda", 0), B)
+    calls, largest = [], [None]
+
+    def hook(module, args):
+        x = args[0]
+        calls.append((tuple(x.shape), str(x.dtype).replace("torch.", ""),
+                      x.is_contiguous(memory_format=torch.channels_last)
+                      and not x.is_contiguous()))
+        if largest[0] is None or x.numel() > largest[0].numel():
+            largest[0] = x.detach().clone(memory_format=torch.preserve_format)
+
+    hooks = [m.register_forward_pre_hook(hook) for net in (state.depth_net, state.pose_net)
+             for m in net.modules() if isinstance(m, BatchNorm2d)]
+    make_train_step(st, device="cuda")(state, rows,
+                                       generator=torch.Generator(device="cuda").manual_seed(1))
+    for h in hooks:
+        h.remove()
+    del state, rows
+    return calls, largest[0]
+
+
+def bn_sums_close(torch, x) -> float:
+    """bn_sums against its plain version on x, both in x's accumulation
+    dtype and in float64 (the sums a data-parallel step all-reduces): the
+    two sum the same terms in float64 in another order, each within (n - 1)
+    * 2^-53 of the magnitudes it adds (n values a channel), and a float32
+    result adds one rounding, 2^-23 of them; returns the largest error over
+    the magnitudes."""
+    from baseboostdepth_tpu_torch.ops.batch_norm import bn_sums, bn_sums_reference
+
+    C, n = x.shape[1], x.numel() // x.shape[1]
+    xa = x.double().abs()
+    dims = (0, *range(2, x.ndim))
+    scale = torch.cat([xa.sum(dims), (xa * xa).sum(dims)]).clamp_min(1e-30)
+    worst = 0.0
+    for dtype in (None, torch.float64):
+        out = None if dtype is None else torch.empty(2 * C, dtype=dtype, device=x.device)
+        got = bn_sums(x, out=out)
+        err = float(((got.double() - bn_sums_reference(x, dtype).double()).abs() / scale).max())
+        tol = 2 * n * 2.0**-53 + (2.0**-23 if got.dtype == torch.float32 else 0.0)
+        check(err <= tol, f"bn_sums {tuple(x.shape)} {x.dtype} -> {got.dtype}: error {err:.3e} "
+                          f"of the magnitudes, bound {tol:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+# (N, C, H, W, dtype, channels-last) of the ragged bn_sums checks: one
+# channel, C not a multiple of 32, one pixel, many channels, NCHW and
+# channels-last, each dtype
+BN_RAGGED = ((3, 5, 7, 9, "float64", False), (3, 5, 7, 9, "float64", True),
+             (2, 33, 1, 1, "float32", False), (1, 3, 2, 3, "bfloat16", True),
+             (7, 1000, 3, 5, "float32", True), (5, 1, 17, 19, "bfloat16", False),
+             (2, 40, 300, 7, "float32", False), (4, 70, 50, 60, "bfloat16", True))
+
+
+def bn_phase(torch, card) -> dict:
+    """The BatchNorm statistics kernel: bn_sums against its plain version
+    (bn_sums_close) at every input shape a late md2 step gives it (random data of that shape,
+    dtype and layout, and the step's own largest input) and at ragged
+    shapes; the train-mode BatchNorm Function (kernel + torch's BN
+    primitives) against the composed form on the same card tensors,
+    forward and backward; times at the largest input beside its bytes
+    bound, torch.batch_norm_stats (Welford, the statistics SyncBatchNorm
+    takes) and cuDNN's whole train-mode BN (F.batch_norm)."""
+    import torch.nn.functional as F
+
+    from baseboostdepth_tpu_torch.ops import batch_norm as bn
+
+    calls, big = capture_bn_inputs(torch)
+    shapes = sorted(set(calls), key=lambda c: -int(np.prod(c[0])))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs = {"step_largest": bn_sums_close(torch, big)}
+    for shape, dtype, cl in [*shapes, *((c[:4], c[4], c[5]) for c in BN_RAGGED)]:
+        x = 2.0 + torch.randn(shape, generator=gen, device="cuda", dtype=torch.float64)
+        x = x.to(getattr(torch, dtype))
+        if cl:
+            x = x.contiguous(memory_format=torch.channels_last)
+        errs[f"{shape} {dtype}{' cl' if cl else ''}"] = bn_sums_close(torch, x)
+
+    # the Function against the composed form, on the step's largest input,
+    # both against the composed form in float64 (exact sums of the same bf16
+    # values): the Function within twice the composed form's own float32
+    # error, or one bf16 rounding for the bf16 output and input gradient
+    C = big.shape[1]
+    w = torch.rand(C, device="cuda", generator=gen) + 0.5
+    b = torch.rand(C, device="cuda", generator=gen) - 0.5
+    ct = torch.randn(big.shape, device="cuda", generator=gen).to(big.dtype)
+    out = {}
+    for name, fn, dt in (("function", bn._BatchNormTrain.apply, None),
+                         ("composed", bn.batch_norm_train_reference, None),
+                         ("float64", bn.batch_norm_train_reference, torch.float64)):
+        x = (big if dt is None else big.to(dt)).clone().requires_grad_(True)
+        wi, bi = (t.to(dt or t.dtype).clone().requires_grad_(True) for t in (w, b))
+        rm = torch.zeros(C, device="cuda", dtype=dt or torch.float32)
+        rv = torch.ones(C, device="cuda", dtype=dt or torch.float32)
+        y = fn(x, wi, bi, rm, rv, 0.1, 1e-5)
+        (y.double() * ct.double()).sum().backward()
+        out[name] = {"y": y.detach(), "dx": x.grad, "dw": wi.grad, "db": bi.grad, "rm": rm,
+                     "rv": rv}
+    fn_errs = {}
+    for k, got in out["function"].items():
+        exact, composed = out["float64"][k], out["composed"][k]
+        check(got.dtype == composed.dtype and got.shape == composed.shape,
+              f"BN Function {k}: {got.dtype} {tuple(got.shape)}")
+        scale = exact.abs().max()
+        e_fn = float((got.double() - exact).abs().max() / scale)
+        e_cmp = float((composed.double() - exact).abs().max() / scale)
+        fn_errs[k] = [e_fn, e_cmp]
+        tol = max(2.0 * e_cmp, 2.0**-7 if got.dtype == torch.bfloat16 else 1e-5)
+        check(e_fn <= tol, f"BN Function {k}: {e_fn:.3e} of the largest float64 entry, the "
+                           f"composed form {e_cmp:.3e}")
+    check(out["function"]["y"].is_contiguous(memory_format=torch.channels_last),
+          "BN Function output lost the channels-last layout")
+
+    ms = time_ms(torch, lambda: bn.bn_sums(big), iters=50)
+    plain_ms = time_ms(torch, lambda: bn.bn_sums_reference(big), iters=50)
+    welford_ms = time_ms(torch, lambda: torch.batch_norm_stats(big, 1e-5), iters=50)
+    cudnn_fwd_ms = time_ms(torch, lambda: F.batch_norm(big, None, None, w, b, True, 0.0, 1e-5),
+                           iters=50)
+    xg = big.clone().requires_grad_(True)
+    wg, bg = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    rm, rv = torch.zeros(C, device="cuda"), torch.ones(C, device="cuda")
+
+    def fwd_bwd(f):
+        return lambda: f().backward(ct)
+
+    fn_fb = time_ms(torch, fwd_bwd(lambda: bn._BatchNormTrain.apply(xg, wg, bg, rm, rv, 0.1,
+                                                                      1e-5)), iters=20)
+    cudnn_fb = time_ms(torch, fwd_bwd(lambda: F.batch_norm(xg, None, None, wg, bg, True, 0.0,
+                                                           1e-5)), iters=20)
+    nbytes = big.numel() * big.element_size() + 2 * C * 4
+    stats = {
+        "checked_shapes": len(errs), "step_bn_calls": len(calls),
+        "step_distinct_inputs": len(shapes), "max_err_over_magnitudes": max(errs.values()),
+        "function_and_composed_vs_float64": fn_errs,
+        "timed_shape": list(big.shape), "timed_dtype": str(big.dtype),
+        "timed_channels_last": True, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "batch_norm_stats_welford_ms": welford_ms, "cudnn_train_bn_forward_ms": cudnn_fwd_ms,
+        "function_fwd_bwd_ms": fn_fb, "cudnn_train_bn_fwd_bwd_ms": cudnn_fb,
+    }
+    print(f"kernel check: bn_sums against its plain version, in the accumulation dtype and in "
+          f"float64, at {len(shapes)} step input shapes, "
+          f"the step's largest input and {len(BN_RAGGED)} ragged shapes: max error "
+          f"{stats['max_err_over_magnitudes']:.3e} of the magnitudes summed; the BN Function "
+          f"and the composed form against float64, of the largest entry: {json.dumps(fn_errs)}")
+    print(f"timing bn_sums at {list(big.shape)} {big.dtype} channels-last: {ms:.4f} ms (bound "
+          f"{stats['bound_ms']:.4f}), plain {plain_ms:.4f}, torch.batch_norm_stats "
+          f"{welford_ms:.4f}, cuDNN train BN forward {cudnn_fwd_ms:.4f}; BN Function fwd+bwd "
+          f"{fn_fb:.4f} vs cuDNN {cudnn_fb:.4f} [{card}]")
+    del big, out, xg
+    torch.cuda.empty_cache()
+    return stats
+
+
 def as_float_frames(torch, batch):
     """The batch with its uint8 frames as float32 in [0, 1] (frames / 255)."""
     return dict(batch, frames=batch["frames"].to(torch.float32) / 255.0)
@@ -1245,6 +1443,7 @@ def step_phase(torch, card, name, steps, float_frames=False, **options):
     float32, and the loss at the initial weights is first held against the
     uint8 batch's at the same noise."""
     from baseboostdepth_tpu_torch.models.pose import realistic_pose_bias_
+    from baseboostdepth_tpu_torch.ops.batch_norm import bn_sums
     from baseboostdepth_tpu_torch.training.batch import synthetic_batch
     from baseboostdepth_tpu_torch.training.step import (
         init_state,
@@ -1281,6 +1480,7 @@ def step_phase(torch, card, name, steps, float_frames=False, **options):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    bn_calls = BatchNormCalls((state.depth_net, state.pose_net))
     reset_launches()
     times, losses = [], []
     for _ in range(steps):
@@ -1293,6 +1493,10 @@ def step_phase(torch, card, name, steps, float_frames=False, **options):
         end.synchronize()
         times.append(start.elapsed_time(end))
     launches = read_launches()
+    bn_launches = bn_sums.launches
+    bn_calls.remove()
+    check(bn_launches == bn_calls.calls > 0, f"{label}: {bn_launches} bn_sums launches for "
+                                             f"{bn_calls.calls} train-mode BatchNorm calls")
 
     check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
     expect = {n: steps * c for n, c in expected_launches(st, float_frames).items()}
@@ -1306,13 +1510,15 @@ def step_phase(torch, card, name, steps, float_frames=False, **options):
     timed = times[1:]  # the first step is the warm-up
     ms = sum(timed) / len(timed)
     print(f"step {label}: losses {[round(v, 6) for v in losses]}, kernel launches "
-          f"{ {n: c for n, c in launches.items() if c} }, peak memory {peak_gb:.2f} GB")
+          f"{ {n: c for n, c in launches.items() if c} }, bn_sums {bn_launches} (one a "
+          f"train-mode BatchNorm call), peak memory {peak_gb:.2f} GB")
     print(f"timing {label} ms/step (CUDA events, mean of the {len(timed)} step(s) after one "
           f"warm-up step): {ms:.2f} (all steps {[round(t, 2) for t in times]}; "
           f"{B / ms * 1e3:.2f} imgs/s) [{card}]")
     del state, batch
     torch.cuda.empty_cache()
-    out = {"launches": launches, "ms_per_step": ms, "peak_gb": peak_gb}
+    out = {"launches": launches, "bn_sums_launches": bn_launches, "ms_per_step": ms,
+           "peak_gb": peak_gb}
     if loss_vs_u8 is not None:
         out["loss_rel_vs_uint8"] = loss_vs_u8
     return out
@@ -1608,22 +1814,8 @@ def zoo_trainer_phase(torch, card, root):
 
 DIST_RANKS = 2  # dist_phase (a): two ranks on the one card
 DIST_TIMEOUT_S = 600
-
-
-def one_process_fast_variance_step():
-    """The one-process float32 late step with BatchNorm2d's global-batch
-    formula (E[x^2] - E[x]^2 of summed statistics, the path a W-rank run
-    takes) in place of F.batch_norm: the rounding baseline that the W-rank
-    check's bounds stand on."""
-    from baseboostdepth_tpu_torch import profile_step as ps
-    from baseboostdepth_tpu_torch.models import resnet
-
-    saved = resnet.world_size, resnet.all_reduce_sum
-    resnet.world_size, resnet.all_reduce_sum = (lambda: 2), (lambda x: x)
-    try:
-        return ps.float32_step("late_F7", B)
-    finally:
-        resnet.world_size, resnet.all_reduce_sum = saved
+# the zoos whose float32 step dist_phase (a) also holds to one process
+DIST_ZOOS = {"monovit": MONOVIT, "cadepth": CADEPTH, "diffnet": DIFFNET, "sql": SQL}
 
 
 def dist_child(rank: int, init: str, out: str) -> None:
@@ -1631,42 +1823,48 @@ def dist_child(rank: int, init: str, out: str) -> None:
     `chip_smoke.py --dist-child RANK INIT OUT`: both ranks on cuda:0 in a
     gloo group (NCCL refuses two ranks on one device). Rank 0 first
     computes the one-process float32 step (TF32 off) of the late stage on
-    the global batch of B, then both run it on their rows: the global loss,
-    the averaged gradients and the BN statistics against the one-process
-    step, the replicas bit-equal. Then 3 bf16 steps of the late and 2 of
-    the early stage, timed, with the kernel launch counters set to 0 just
-    before each and read just after. Writes its results to OUT (JSON)."""
+    the global batch, md2's and each of DIST_ZOOS', then both run each on
+    their rows: the global loss, the averaged gradients and the BN
+    statistics against the one-process step (profile_step.hold_to_reference),
+    the replicas bit-equal. Then
+    3 bf16 steps of md2's late and 2 of its early stage, timed, with the
+    kernel launch counters set to 0 just before each and read just after,
+    and the train-mode BatchNorm calls counted. Writes its results to OUT
+    (JSON)."""
     import torch
     import torch.distributed as dist
 
     from baseboostdepth_tpu_torch import profile_step as ps
+    from baseboostdepth_tpu_torch.ops.batch_norm import bn_sums
     from baseboostdepth_tpu_torch.parallel import sharding
     from baseboostdepth_tpu_torch.training.step import main_path_static, make_train_step
 
     torch.cuda.set_device(0)
     dev = torch.device("cuda", 0)
-    ref = fast = None
-    if rank == 0:
-        ref, fast = ps.float32_step("late_F7", B), one_process_fast_variance_step()
+    refs = {}
+    if rank == 0:  # the one-process steps, before the group exists
+        for zoo, options in {"md2": {}, **DIST_ZOOS}.items():
+            refs[zoo] = ps.float32_step("late_F7", B, **options)
+            torch.cuda.empty_cache()
     dist.init_process_group("gloo", init_method=init, world_size=DIST_RANKS, rank=rank)
     try:
-        got = ps.float32_step("late_F7", B)
-        result = {"rank": rank, "local_batch": B // DIST_RANKS,
-                  "replicas_bit_equal": ps.replicas_equal(
-                      [*got["params"].values(), *got["stats"].values(),
-                       *got["grads"].values()])}
-        if rank == 0:
-            result["float32_vs_one_process"] = ps.hold_to_reference(got, ref)
-            result["baseline_fast_variance_vs_one_process"] = ps.hold_to_reference(fast, ref)
-            result["float32_vs_one_process_fast_variance"] = ps.hold_to_reference(got, fast)
-        del got, ref, fast
-        torch.cuda.empty_cache()
+        result = {"rank": rank, "local_batch": B // DIST_RANKS}
+        for zoo, options in {"md2": {}, **DIST_ZOOS}.items():
+            got = ps.float32_step("late_F7", B, **options)
+            held = {"replicas_bit_equal": ps.replicas_equal(
+                [*got["params"].values(), *got["stats"].values(), *got["grads"].values()])}
+            if rank == 0:
+                held.update(ps.hold_to_reference(got, refs.pop(zoo)))
+            result[f"float32_{zoo}"] = held
+            del got
+            torch.cuda.empty_cache()
         for name, steps in (("late_F7", 3), ("early_F2", 2)):
             st = main_path_static(name)
             state, rows = ps.main_path_state(st, dev, B)
             step = make_train_step(st, device=dev)
             gen = torch.Generator(device=dev).manual_seed(1)
             calls = sharding.all_reduce_sum.calls
+            bn_calls = BatchNormCalls((state.depth_net, state.pose_net))
             reset_launches()
             times, losses = [], []
             for _ in range(steps):
@@ -1678,7 +1876,9 @@ def dist_child(rank: int, init: str, out: str) -> None:
                 losses.append(float(sharding.all_reduce_mean([metrics["loss"]])[0]))
                 end.synchronize()
                 times.append(start.elapsed_time(end))
+            bn_calls.remove()
             result[name] = {"launches": read_launches(), "ms": times, "losses": losses,
+                            "bn_sums": [bn_sums.launches, bn_calls.calls],
                             "expected": {n: steps * c
                                          for n, c in expected_launches(st).items()},
                             "bn_all_reduce_calls_per_step":
@@ -1699,10 +1899,13 @@ def dist_phase(torch, card, root):
     (a) two ranks on the one card, gloo with CUDA tensors (NCCL refuses two
         ranks on one device): `dist_child` in two processes at the main
         path's full width (640x192, global batch 12, 6 a rank), the float32
-        step held to the one-process step and the ranks' replicas
-        bit-equal, then bf16 steps timed (over gloo, which copies every
-        collective through the host: not a figure of NCCL), each rank's
-        kernel launches held to expected_launches;
+        late step of md2 and of each of DIST_ZOOS (monovit, cadepth
+        two-call, diffnet, sql at scale 0) held
+        to the one-process step and the ranks' replicas bit-equal, then
+        md2's bf16 steps timed (over gloo, which copies every collective
+        through the host: not a figure of NCCL), each rank's kernel
+        launches held to expected_launches and its bn_sums launches to its
+        train-mode BatchNorm calls;
     (b) cli.train --dist.enabled under `python -m torch.distributed.run
         --standalone --nproc_per_node 1` (NCCL): one epoch on the trees
         under `root`, then a resumed second; the lead (process 0 of 1)
@@ -1734,24 +1937,26 @@ def dist_phase(torch, card, root):
     for path in outs:
         with open(path) as f:
             ranks.append(json.load(f))
-    parity = ranks[0]["float32_vs_one_process"]
-    check(parity["ok"] and all(r["replicas_bit_equal"] for r in ranks),
-          f"dist (a): {DIST_RANKS} gloo ranks vs one process: {parity}, replicas "
-          f"{[r['replicas_bit_equal'] for r in ranks]}")
+    parity = {zoo: ranks[0][f"float32_{zoo}"] for zoo in ("md2", *DIST_ZOOS)}
+    for zoo, held in parity.items():
+        check(held["ok"] and all(r[f"float32_{zoo}"]["replicas_bit_equal"] for r in ranks),
+              f"dist (a): {DIST_RANKS} gloo ranks vs one process, {zoo}: {held}, replicas "
+              f"{[r[f'float32_{zoo}']['replicas_bit_equal'] for r in ranks]}")
     runs = {}
     for r in ranks:
         for name in ("late_F7", "early_F2"):
             got = r[name]
             check(got["launches"] == got["expected"] and got["replicas_bit_equal"]
-                  and all(np.isfinite(got["losses"])),
+                  and all(np.isfinite(got["losses"]))
+                  and got["bn_sums"][0] == got["bn_sums"][1] > 0,
                   f"dist (a) rank {r['rank']} {name}: launches {got['launches']}, expected "
-                  f"{got['expected']}, replicas equal {got['replicas_bit_equal']}, losses "
-                  f"{got['losses']}")
+                  f"{got['expected']}, bn_sums launches / BN calls {got['bn_sums']}, replicas "
+                  f"equal {got['replicas_bit_equal']}, losses {got['losses']}")
             runs[f"dist_gloo_rank{r['rank']}_{name}"] = {"launches": got["launches"]}
-    print(f"dist (a), gloo with CUDA tensors, {DIST_RANKS} ranks on one card, global batch "
-          f"{B}: float32 late_F7 step vs one process {json.dumps(parity)}; replicas bit-equal")
-    for key in ("baseline_fast_variance_vs_one_process", "float32_vs_one_process_fast_variance"):
-        print(f"dist (a) {key}: {json.dumps(ranks[0][key])}")
+    for zoo, held in parity.items():
+        print(f"dist (a), gloo with CUDA tensors, {DIST_RANKS} ranks on one card, {zoo}, global "
+              f"batch {B}: float32 late_F7 step vs one process {json.dumps(held)}; "
+              "replicas bit-equal")
     for r in ranks:
         for name in ("late_F7", "early_F2"):
             got = r[name]
@@ -1760,7 +1965,8 @@ def dist_phase(torch, card, root):
                   f"losses {[round(v, 6) for v in got['losses']]}, "
                   f"{got['bn_all_reduce_calls_per_step']:.0f} BN all-reduce calls a step "
                   f"(forward; as many backward), launches "
-                  f"{ {n: c for n, c in got['launches'].items() if c} } [{card}; gloo]")
+                  f"{ {n: c for n, c in got['launches'].items() if c} }, bn_sums "
+                  f"{got['bn_sums'][0]} [{card}; gloo]")
 
     # (b) the CLI under torch.distributed.run, NCCL
     argv = ["--data.kt_path", os.path.join(root, "raw"),
@@ -1796,10 +2002,8 @@ def dist_phase(torch, card, root):
           f"the lead, logged losses {[round(m['loss'], 6) for m in logged]}; wall clock "
           f"{[round(w, 2) for w in walls]} s (process start, networks' init, 4 steps, "
           f"checkpoint) [{card}]")
-    return runs, {"gloo_float32_check": parity,
-                  "baseline_fast_variance_vs_one_process":
-                      ranks[0]["baseline_fast_variance_vs_one_process"],
-                  "gloo_s": gloo_s, "nccl": nccl, "cli_nccl_s": walls}
+    return runs, {"gloo_float32_checks": parity, "gloo_s": gloo_s, "nccl": nccl,
+                  "cli_nccl_s": walls}
 
 
 def finite_metrics(what, result: dict) -> dict:
@@ -2010,6 +2214,7 @@ def main() -> int:
         stats[name]["image_count_check"] = many
     probe_run, probe_stats = probe_phase(torch, card)
     stats.update(probe_stats)
+    bn_stats = bn_phase(torch, card)
     parity_phase(torch)
     parity_phase(torch, **FUSED)
     parity_phase(torch, float_frames=True)
@@ -2098,8 +2303,14 @@ def main() -> int:
             **stats[name],
             "launches_by_run": {run: r["launches"][name] for run, r in runs.items()},
         })
+    bn_stats["launches_by_run"] = {run: r["bn_sums_launches"] for run, r in runs.items()
+                                   if "bn_sums_launches" in r}
+    bn_stats["launches"] = sum(bn_stats["launches_by_run"].values())
+    check(bn_stats["launches"] > 0, "bn_sums never launched on the main path")
     print(f"eval path: {json.dumps(evals)} [{card}]")
     print(f"dist: {json.dumps(dist_stats)} [{card}]")
+    print("bn_sums (no TPU counterpart: flax's BatchNorm statistics, "
+          f"baseboostdepth_tpu_torch/ops/csrc/bn_sums.cu): {json.dumps(bn_stats)} [{card}]")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start of main to the "
           "kernels' line")
     print(card)

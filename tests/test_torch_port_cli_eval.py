@@ -10,26 +10,22 @@ float32, batch 4. Tolerances: export_gt, the colormap and
 the same arrays); infer's disparity 1e-5 relative to JAX's forward (the
 networks' convolutions summed in another order); the display upsampling
 1e-5 relative.
+
+Some of this file's tests are in test_torch_port_cli_eval_entry.py (export_gt, the infer parity, the
+default device) and test_torch_port_colormap.py (display upsampling,
+colormaps), so that each file has at most
+seven tests: a file with more queues ahead of tests/test_zoo_training.py,
+the suite's longest (ROADMAP.md, "The time budget").
 """
 
 import json
 import os
 
-import jax
-import jax.numpy as jnp
-import matplotlib
 import numpy as np
 import pytest
 import torch
 from PIL import Image
 
-from baseboostdepth_tpu.cli import export_gt as jexport_gt
-from baseboostdepth_tpu.evaluation import depth as jdepth
-from baseboostdepth_tpu.models.torch_import import (
-    depth_decoder_torch_to_flax,
-    resnet_torch_to_flax,
-)
-from baseboostdepth_tpu.training.step import StepStatic as JaxStepStatic
 from baseboostdepth_tpu_torch.cli import evaluate_depth, evaluate_pose, export_gt, infer
 from baseboostdepth_tpu_torch.cli import train as cli_train
 from baseboostdepth_tpu_torch.cli import visualize
@@ -37,7 +33,7 @@ from baseboostdepth_tpu_torch.config import Config
 from baseboostdepth_tpu_torch.training.checkpoint import CheckpointManager
 from baseboostdepth_tpu_torch.training.step import StepStatic, init_state
 from baseboostdepth_tpu_torch.training.trainer import Trainer
-from baseboostdepth_tpu_torch.utils import colormap
+from torch_port_helpers import lowered_priority
 
 FOLDER = "2011_09_26/2011_09_26_drive_0001_sync"
 
@@ -49,7 +45,8 @@ def one_torch_thread():
     CPU and slows every worker."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 
@@ -155,22 +152,6 @@ def test_trainer_syns_val_skips_missing_assets(trained, tmp_path, capsys):
     assert not any("syns/" in ln for ln in open(tmp_path / "skip" / "metrics.jsonl"))
 
 
-def test_export_gt_syns_matches_jax(tmp_path):
-    for pkg, main in (("port", export_gt.main), ("jax", jexport_gt.main)):
-        _write_syns(tmp_path / pkg, np.random.default_rng(3))
-        args = ["--split", "SYNS", "--syns_path", str(tmp_path / pkg / "syns"),
-                "--splits_dir", str(tmp_path / pkg / "splits")]
-        main(args)
-        main(args + ["--val"])
-    for name in ("gt_depths", "gt_edges", "gt_depths_val", "gt_edges_val"):
-        ours = np.load(tmp_path / "port" / "splits" / "SYNS" / f"{name}.npz", allow_pickle=True)
-        ref = np.load(tmp_path / "jax" / "splits" / "SYNS" / f"{name}.npz", allow_pickle=True)
-        assert len(ours["data"]) == len(ref["data"]) == (1 if name.endswith("_val") else 2)
-        for a, b in zip(ours["data"], ref["data"]):
-            assert a.dtype == b.dtype
-            np.testing.assert_array_equal(a, b)
-
-
 @pytest.mark.parametrize("protocol", [[], ["--stereo"]], ids=["mono", "stereo"])
 def test_evaluate_depth_cli_and_saved_disparities(trained, tmp_path, protocol):
     """evaluate_depth on cli.train's checkpoint; scoring the saved stack with
@@ -247,67 +228,3 @@ def test_infer_and_visualize_cli(trained, tmp_path):
                           "--model", f"{config}:{ckpt}", "--model", f"{config}:{ckpt}",
                           "--gt_npz", str(tmp_path / "gt.npz")], device="cpu")
     assert os.path.getsize(out) > 0
-
-
-def test_infer_matches_jax_disp_forward(tmp_path):
-    """infer's saved disparity against JAX's make_disp_forward on the same
-    image (decoded and LANCZOS-resized as infer does) and weights."""
-    cfg = Config()
-    cfg.data.height, cfg.data.width = 64, 128
-    cfg.model.dtype = "float32"
-    cfg.save(str(tmp_path / "cfg.json"))
-    state = init_state(StepStatic(height=64, width=128, dtype="float32"), seed=4, device="cpu")
-    CheckpointManager(str(tmp_path / "ckpt")).save(1, state)
-    img = np.random.default_rng(8).integers(0, 255, (90, 300, 3), dtype=np.uint8)
-    Image.fromarray(img).save(tmp_path / "frame.jpg")
-    infer.main(["--config", str(tmp_path / "cfg.json"), "--checkpoint", str(tmp_path / "ckpt"),
-                "--image_path", str(tmp_path / "frame.jpg")], device="cpu")
-    ours = np.load(tmp_path / "frame_disp.npy")
-
-    d = {k: v.numpy() for k, v in state.depth_net.state_dict().items()}
-    enc_p, enc_s = resnet_torch_to_flax(d, prefix="encoder.encoder.")
-    dec = depth_decoder_torch_to_flax({k[len("decoder."):]: v for k, v in d.items()
-                                       if k.startswith("decoder.")})
-    params = {"depth": {"encoder": enc_p, "decoder": dec}}
-    stats = {"depth": {"encoder": enc_s}}
-    with Image.open(tmp_path / "frame.jpg") as im:
-        x = np.asarray(im.convert("RGB").resize((128, 64), Image.LANCZOS), np.float32) / 255.0
-    fwd = jdepth.make_disp_forward(JaxStepStatic(height=64, width=128, dtype="float32"))
-    ref = np.asarray(fwd(jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, stats),
-                         jnp.asarray(x[None])))[0]
-    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
-    assert os.path.getsize(tmp_path / "frame_disp.jpeg") > 0
-
-
-@pytest.mark.parametrize("size", [(375, 1242), (20, 50), (100, 60)], ids=["up", "down", "mixed"])
-def test_display_upsampling_matches_jax_resize(size):
-    disp = np.random.default_rng(9).random((64, 128)).astype(np.float32)
-    ours = infer.upsample_for_display(torch.from_numpy(disp), *size).numpy()
-    ref = np.asarray(jax.image.resize(jnp.asarray(disp), size, method="linear"))
-    assert ours.shape == size
-    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
-
-
-@pytest.mark.parametrize("cmap", ["plasma", "magma"])
-def test_colormap_matches_matplotlib(cmap):
-    rng = np.random.default_rng(10)
-    edge = [0.0, 1.0, 1 - 1e-7, -1e-7, -0.5, 1.5, np.nan, np.inf, -np.inf, 1 / 256, 255 / 256]
-    for dtype in (np.float32, np.float64):
-        x = np.concatenate([rng.random(989), edge]).astype(dtype).reshape(25, 40)
-        ref = matplotlib.colormaps[cmap](x)[..., :3]
-        np.testing.assert_array_equal(colormap(x, cmap, normalize=False), ref)
-    y = rng.normal(size=(7, 9)).astype(np.float32)
-    lo, hi = float(y.min()), float(y.max())
-    np.testing.assert_array_equal(colormap(y, cmap),
-                                  matplotlib.colormaps[cmap]((y - lo) / (hi - lo))[..., :3])
-    with pytest.raises(ValueError):
-        colormap(y, "viridis")
-
-
-def test_entry_points_default_to_the_card(trained):
-    if torch.cuda.is_available():
-        pytest.skip("a GPU is present: the default device is valid here")
-    _, config, ckpt = trained
-    for main in (evaluate_depth.main, evaluate_pose.main, infer.main, visualize.main):
-        with pytest.raises(RuntimeError, match="cuda"):
-            main(["--config", config, "--checkpoint", ckpt])

@@ -61,6 +61,7 @@ from baseboostdepth_tpu_torch.models.torch_import import (
 )
 from tests.test_torch_port_monovit import _close, _close_l2, _flat
 from tests.test_torch_port_zoos import perturb_, pose_to_flax
+from torch_port_helpers import lowered_priority
 
 #: stages 3 and 4 with one HighResolutionModule each
 CUT = {**HRNET18_STAGES, "stage3": {**HRNET18_STAGES["stage3"], "modules": 1},
@@ -72,7 +73,8 @@ def one_torch_thread():
     """One intra-op thread: the suite runs files in parallel processes."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 

@@ -14,6 +14,11 @@ whose nearest-neighbour distance is below 0.1 m: a disparity ~1e-6 apart
 moves a point by up to 6e-5 m and can carry it across the threshold, so they
 are held to two such crossings, 5e-4 absolute (ROADMAP.md, C); chamfer
 distances 1e-4 absolute; ATEs 1e-5.
+
+Some of this file's tests are in test_torch_port_eval_metrics.py (the pieces that need no network) and
+test_torch_port_eval_syns.py (SYNS helpers, chamfer, the default device), so that each file has at most
+seven tests: a file with more queues ahead of tests/test_zoo_training.py,
+the suite's longest (ROADMAP.md, "The time budget").
 """
 
 import jax
@@ -24,10 +29,7 @@ import torch
 from PIL import Image
 
 from baseboostdepth_tpu.config import Config as JaxConfig
-from baseboostdepth_tpu.data import kitti as jkitti
-from baseboostdepth_tpu import geometry as jgeometry
 from baseboostdepth_tpu.evaluation import depth as jdepth
-from baseboostdepth_tpu.evaluation import metrics as jmetrics
 from baseboostdepth_tpu.evaluation import pose as jpose
 from baseboostdepth_tpu.evaluation import syns as jsyns
 from baseboostdepth_tpu.models.torch_import import (
@@ -35,15 +37,12 @@ from baseboostdepth_tpu.models.torch_import import (
     pose_decoder_torch_to_flax,
     resnet_torch_to_flax,
 )
-from baseboostdepth_tpu.ops import chamfer as jchamfer
 from baseboostdepth_tpu.training.step import StepStatic as JaxStepStatic
-from baseboostdepth_tpu_torch import geometry
 from baseboostdepth_tpu_torch.config import Config
-from baseboostdepth_tpu_torch.data import kitti
-from baseboostdepth_tpu_torch.evaluation import depth, metrics, pose, syns
+from baseboostdepth_tpu_torch.evaluation import depth, pose, syns
 from baseboostdepth_tpu_torch.models.convert import from_jax
-from baseboostdepth_tpu_torch.ops import chamfer
 from baseboostdepth_tpu_torch.training.step import StepStatic, init_state
+from torch_port_helpers import lowered_priority
 
 H, W = 64, 128
 FOLDER = "2011_09_26/2011_09_26_drive_0002_sync"
@@ -56,7 +55,8 @@ def one_torch_thread():
     CPU and slows every worker."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 
@@ -185,57 +185,6 @@ def _cfgs(root, kt="kitti"):
     return cfg, JaxConfig.from_dict(cfg.to_dict())
 
 
-def test_kitti_odom_index_paths(tmp_path):
-    split = tmp_path / "test_files_09.txt"
-    split.write_text("09 0 l\n9 17 r\n10 4540\n")
-    ours = kitti.KittiOdomIndex("/data/odom", str(split))
-    ref = jkitti.KittiOdomIndex("/data/odom", str(split))
-    assert len(ours) == len(ref) == 3
-    for a, b in zip(ours.samples, ref.samples):
-        assert (a.folder, a.frame_index, a.side) == (b.folder, b.frame_index, b.side)
-        assert ours.image_path(a.folder, a.frame_index, a.side) == \
-            ref.image_path(b.folder, b.frame_index, b.side)
-        assert ours.image_path(a.folder, a.frame_index) == ref.image_path(b.folder, b.frame_index)
-
-
-def test_backproject_and_project_match_jax():
-    rng = np.random.default_rng(1)
-    B, h, w = 2, 6, 10
-    depth_np = rng.uniform(1, 80, (B, h, w)).astype(np.float32)
-    K = np.tile(kitti.intrinsics(w, h)[0], (B, 1, 1))
-    inv_K = np.linalg.inv(K).astype(np.float32)
-    T = np.stack([np.eye(4), np.eye(4)]).astype(np.float32)
-    T[:, :3, 3] = rng.normal(0, 0.3, (B, 3))
-    T[1, :3, :3] = np.asarray(jgeometry.rot_from_axisangle(jnp.asarray([0.02, -0.05, 0.01])))
-    pts = geometry.backproject_depth(torch.from_numpy(depth_np), torch.from_numpy(inv_K))
-    jpts = jgeometry.backproject_depth(jnp.asarray(depth_np), jnp.asarray(inv_K))
-    _rel(pts.numpy(), jpts, 1e-6, "backproject")
-    grid = geometry.project_3d(pts, torch.from_numpy(K), torch.from_numpy(T), h, w)
-    jgrid = jgeometry.project_3d(jpts, jnp.asarray(K), jnp.asarray(T), h, w)
-    assert grid.shape == (B, h, w, 2)
-    _rel(grid.numpy(), jgrid, 1e-6, "project")
-
-
-@pytest.mark.parametrize("protocol", ["mono", "stereo", "syns_range", "metric"])
-def test_evaluate_disparities_equal(protocol):
-    rng = np.random.default_rng(2)
-    disps = rng.uniform(0.02, 0.5, (3, 24, 80)).astype(np.float32)
-    gts = [np.where(rng.random((50, 160)) < 0.4, rng.uniform(0.5, 120, (50, 160)), 0.0)
-           .astype(np.float32) for _ in range(3)]
-    made = []
-    for M in (metrics, jmetrics):
-        p = M.EvalProtocol.stereo() if protocol == "stereo" else M.EvalProtocol.mono()
-        if protocol == "syns_range":
-            p.garg_crop, p.max_depth = False, M.SYNS_MAX_DEPTH
-        if protocol == "metric":
-            p.disp_input = False
-        made.append(M.evaluate_disparities(disps * (100 if protocol == "metric" else 1), gts, p))
-    for a, b in zip(*made):
-        np.testing.assert_array_equal(a, b)
-    assert metrics.STEREO_SCALE_FACTOR == jmetrics.STEREO_SCALE_FACTOR
-    assert metrics.SYNS_MAX_DEPTH == jmetrics.SYNS_MAX_DEPTH
-
-
 def test_disp_forward_matches_jax(nets):
     jax_state, state = nets
     x = np.random.default_rng(3).random((2, H, W, 3)).astype(np.float32)
@@ -245,13 +194,6 @@ def test_disp_forward_matches_jax(nets):
         *jax_state, jnp.asarray(x))
     assert ours.shape == (2, H, W)
     _rel(ours, ref, 1e-5, "scaled disparity")
-
-
-def test_batch_post_process_equal():
-    rng = np.random.default_rng(4)
-    d, df = rng.random((2, 3, 2, 50)).astype(np.float32)
-    np.testing.assert_array_equal(depth._batch_post_process(d, df),
-                                  jdepth._batch_post_process(d, df))
 
 
 @pytest.mark.parametrize("mode", ["mono", "stereo", "post_process"])
@@ -282,35 +224,6 @@ def test_evaluate_syns_matches_jax(nets, trees, file_name):
     _metrics_close(ours, ref, atol={"f1": 5e-4, "iou": 5e-4})
 
 
-def test_syns_helpers_equal():
-    rng = np.random.default_rng(5)
-    np.testing.assert_array_equal(syns.syns_intrinsics(), jsyns.syns_intrinsics())
-    d = rng.uniform(0.5, 100, (38, 116)).astype(np.float32)
-    d[3, :9] = 0
-    np.testing.assert_array_equal(syns.to_log_depth(d), jsyns.to_log_depth(d))
-    pe = syns.predicted_edges(d)
-    np.testing.assert_array_equal(pe, jsyns.predicted_edges(d))
-    ge, mask = rng.random((38, 116)) < 0.1, rng.random((38, 116)) < 0.9
-    assert syns.edge_metrics(ge, pe, mask) == jsyns.edge_metrics(ge, pe, mask)
-    inv_K3 = np.linalg.pinv(syns.syns_intrinsics())
-    np.testing.assert_array_equal(syns.backproject_points(d, inv_K3, mask),
-                                  jsyns.backproject_points(d, inv_K3, mask))
-
-
-def test_chamfer_matches_jax():
-    rng = np.random.default_rng(2)
-    p = rng.normal(size=(3000, 3)).astype(np.float32) * 20 + 40
-    q = np.concatenate([p[:2000] + rng.normal(0, 0.05, (2000, 3)),
-                        rng.normal(size=(2500, 3)) * 22 + 40]).astype(np.float32)
-    ours = chamfer.chamfer_nn_distances(p, q, device="cpu")
-    ref = jchamfer.chamfer_nn_distances(p, q)
-    for a, b in zip(ours, ref):
-        assert a.shape == b.shape and a.dtype == b.dtype
-        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
-    for th in (0.1, 0.5, 1e-9):
-        assert chamfer.pointcloud_f_iou(*ours, th=th) == jchamfer.pointcloud_f_iou(*ref, th=th)
-
-
 def test_evaluate_odometry_matches_jax(nets, trees):
     jax_state, state = nets
     cfg, jcfg = _cfgs(trees, kt="odom")
@@ -326,14 +239,3 @@ def test_evaluate_odometry_matches_jax(nets, trees):
     np.testing.assert_array_equal(pose.dump_xyz(Ts), jpose.dump_xyz(Ts))
     a, b = rng.normal(size=(4, 3)), rng.normal(size=(4, 3))
     assert pose.compute_ate(a, b) == jpose.compute_ate(a, b)
-
-
-def test_evaluators_need_the_card_by_default(nets):
-    if torch.cuda.is_available():
-        pytest.skip("a GPU is present: the default device is valid here")
-    with pytest.raises(RuntimeError, match="cuda"):
-        depth.make_disp_forward(StepStatic())
-    with pytest.raises(RuntimeError, match="cuda"):
-        chamfer.chamfer_nn_distances(np.zeros((2, 3)), np.zeros((2, 3)))
-    with pytest.raises(RuntimeError, match="cuda"):
-        pose.make_pose_forward()

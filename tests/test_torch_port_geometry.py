@@ -11,6 +11,7 @@ import torch
 
 from baseboostdepth_tpu import geometry as jg
 from baseboostdepth_tpu_torch import geometry as tg
+from torch_port_helpers import lowered_priority
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -20,7 +21,8 @@ def one_torch_thread():
     CPU and slows every worker."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 

@@ -20,29 +20,24 @@ mirror tests/test_download.py over file:// URLs (no network).
 
 Single-worker time (one pytest process, one torch thread, Intel Xeon):
 about 35 s.
+
+Some of this file's tests are in test_torch_port_import_pretrained.py (ImageNet encoders, the download
+tables, download's main) and test_torch_port_download.py (utils/download.py), so that each file has at most
+seven tests: a file with more queues ahead of tests/test_zoo_training.py,
+the suite's longest (ROADMAP.md, "The time budget").
 """
 
-import hashlib
 import os
-import shutil
-import zipfile
 
 import pytest
 import torch
 
 from baseboostdepth_tpu.models.torch_import import IMPORTERS as JAX_IMPORTERS
-from baseboostdepth_tpu.models.torch_import import load_pretrained_encoder as jax_load_pretrained
-from baseboostdepth_tpu.training.step import TrainState as JaxTrainState
 from baseboostdepth_tpu_torch.models import build_depth_net, build_pose_net
 from baseboostdepth_tpu_torch.models.convert import from_jax
 from baseboostdepth_tpu_torch.models.resnet import ResNet, init_encoder_
-from baseboostdepth_tpu_torch.models.torch_import import (
-    IMPORTERS,
-    load_pretrained_encoder,
-    load_torch_state_dict,
-)
-from baseboostdepth_tpu_torch.utils import download as dl
-from tests.test_torch_port_zoos import depth_to_flax, perturb_, pose_to_flax
+from baseboostdepth_tpu_torch.models.torch_import import IMPORTERS
+from tests.test_torch_port_zoos import perturb_
 from tests.torch_mpvit_ref import mpvit_small
 from tests.torch_zoo_refs import (
     make_ca_decoder,
@@ -51,6 +46,7 @@ from tests.torch_zoo_refs import (
     make_sql_encoder,
     make_sql_head,
 )
+from torch_port_helpers import lowered_priority
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -58,7 +54,8 @@ def one_torch_thread():
     """One intra-op thread: the suite runs files in parallel processes."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 
@@ -177,125 +174,5 @@ def test_import_refuses_a_foreign_key(tmp_path):
         IMPORTERS["md2"](folder, build_depth_net("md2"), build_pose_net())
 
 
-@pytest.mark.parametrize("zoo", ["md2", "cadepth", "sql"])
-def test_pretrained_encoder_matches_jax(tmp_path, zoo):
-    """load_pretrained_encoder: the depth encoder from a torchvision file
-    (resnet18 for md2, resnet50 for cadepth and sql), the pose encoder from
-    a resnet18 file with conv1 tiled over the two frames and halved; the
-    rest of both networks untouched. Equal to JAX's on every tensor."""
-    rn18 = _resnet18_file(str(tmp_path / "resnet18-00000000.pth"))
-    depth_path = rn18 if zoo == "md2" else _resnet50_file(str(tmp_path / "resnet50.pth"))
-    pose_path = None if zoo == "md2" else rn18
-    gen = torch.Generator().manual_seed(3)
-    depth_net, pose_net = build_depth_net(zoo, 18, gen), build_pose_net(gen)
-    before = {k: v.clone() for k, v in depth_net.state_dict().items()}
-    dp, ds = depth_to_flax(zoo, depth_net.state_dict())
-    pp, ps = pose_to_flax(pose_net.state_dict())
-    jstate = JaxTrainState(step=0, params={"depth": dp, "pose": pp},
-                           stats={"depth": ds, "pose": ps}, opt_state=None)
-
-    load_pretrained_encoder(depth_net, pose_net, depth_path, zoo, pose_path=pose_path)
-    jstate = jax_load_pretrained(jstate, depth_path, zoo, pose_path=pose_path)
-    _assert_equal_to_jax(depth_net, pose_net, jstate.params, jstate.stats)
-
-    src = load_torch_state_dict(depth_path)
-    trunk = "encoder.encoder.encoder." if zoo == "sql" else "encoder.encoder."
-    after = depth_net.state_dict()
-    assert torch.equal(after[trunk + "conv1.weight"], src["conv1.weight"])
-    for k, v in after.items():
-        if not k.startswith(trunk):
-            assert torch.equal(v, before[k]), f"{k} changed"
-    w = load_torch_state_dict(rn18)["conv1.weight"]
-    assert torch.equal(pose_net.encoder.encoder.conv1.weight, torch.cat([w, w], 1) / 2)
-
-
 # ---------------------------------------------------------------------------
 # utils/download.py, as tests/test_download.py holds the JAX package's
-
-
-@pytest.fixture()
-def zip_fixture(tmp_path):
-    src = tmp_path / "src"
-    src.mkdir()
-    (src / "encoder.pth").write_bytes(b"fake-encoder")
-    (src / "depth.pth").write_bytes(b"fake-depth")
-    zpath = tmp_path / "weights.zip"
-    with zipfile.ZipFile(zpath, "w") as zf:
-        for f in src.iterdir():
-            zf.write(f, f.name)
-    md5 = hashlib.md5(zpath.read_bytes()).hexdigest()
-    return str(zpath), md5, str(tmp_path / "models")
-
-
-def test_download_fetch_verify_unpack(zip_fixture):
-    zpath, md5, models_dir = zip_fixture
-    folder = dl.download_model_if_doesnt_exist("myweights", models_dir, url=f"file://{zpath}",
-                                               md5=md5)
-    assert os.path.exists(os.path.join(folder, "encoder.pth"))
-    # a second call is a no-op: the unreachable url is never fetched
-    assert dl.download_model_if_doesnt_exist(
-        "myweights", models_dir, url="http://invalid.invalid/x.zip", md5=md5) == folder
-
-
-def test_download_checksum_mismatch_raises(zip_fixture):
-    zpath, _, models_dir = zip_fixture
-    with pytest.raises(RuntimeError, match="checksum"):
-        dl.download_model_if_doesnt_exist("bad", models_dir, url=f"file://{zpath}", md5="0" * 32)
-
-
-def test_download_unknown_name_raises(tmp_path):
-    with pytest.raises(KeyError, match="unknown model"):
-        dl.download_model_if_doesnt_exist("nope", str(tmp_path))
-
-
-def test_download_existing_zip_without_md5_not_refetched(zip_fixture):
-    zpath, _, models_dir = zip_fixture
-    os.makedirs(models_dir, exist_ok=True)
-    shutil.copy(zpath, os.path.join(models_dir, "trusted.zip"))
-    folder = dl.download_model_if_doesnt_exist("trusted", models_dir,
-                                               url="http://invalid.invalid/x.zip", md5=None)
-    assert os.path.exists(os.path.join(folder, "encoder.pth"))
-
-
-def test_fetch_torchvision_resnet_verifies_and_is_a_noop_after(tmp_path, monkeypatch):
-    content = b"imagenet-weights"
-    src = tmp_path / f"resnet18-{hashlib.sha256(content).hexdigest()[:8]}.pth"
-    src.write_bytes(content)
-    monkeypatch.setattr(dl, "TORCHVISION_RESNETS", {18: f"file://{src}"})
-    path = dl.fetch_torchvision_resnet(18, str(tmp_path / "models"))
-    assert open(path, "rb").read() == content
-    monkeypatch.setattr(dl, "TORCHVISION_RESNETS",
-                        {18: "http://invalid.invalid/" + os.path.basename(path)})
-    assert dl.fetch_torchvision_resnet(18, str(tmp_path / "models")) == path
-
-
-def test_fetch_torchvision_resnet_checksum_mismatch_raises(tmp_path, monkeypatch):
-    src = tmp_path / "resnet18-00000000.pth"
-    src.write_bytes(b"corrupt")
-    monkeypatch.setattr(dl, "TORCHVISION_RESNETS", {18: f"file://{src}"})
-    with pytest.raises(RuntimeError, match="checksum"):
-        dl.fetch_torchvision_resnet(18, str(tmp_path / "models"))
-
-
-def test_download_tables_equal_the_jax_package():
-    from baseboostdepth_tpu.utils import download as jax_dl
-
-    assert dl.MODEL_URLS == jax_dl.MODEL_URLS and len(dl.MODEL_URLS) == 9
-    assert dl.TORCHVISION_RESNETS == jax_dl.TORCHVISION_RESNETS
-    assert sorted(dl.TORCHVISION_RESNETS) == [18, 34, 50, 101, 152]
-
-
-def test_download_main_imports_a_folder(tmp_path, capsys):
-    """main --zoo: fetch (file://) a zipped reference folder and import it
-    with the port's IMPORTERS."""
-    folder = _write_folder(str(tmp_path / "src"), "md2")
-    zpath = tmp_path / "md2.zip"
-    with zipfile.ZipFile(zpath, "w") as zf:
-        for name in os.listdir(folder):
-            zf.write(os.path.join(folder, name), name)
-    dl.main(["md2_weights", "--models_dir", str(tmp_path / "models"), "--url",
-             f"file://{zpath}", "--zoo", "md2"])
-    out = capsys.readouterr().out
-    n = sum(p.numel() for net in (build_depth_net("md2"), build_pose_net())
-            for p in net.parameters())
-    assert f"imported md2 checkpoint: {n:,} parameters" in out

@@ -5,6 +5,10 @@ Tolerances (absolute): losses and their gradients 1e-5 (float32 window sums
 in another order, through a rational SSIM expression); color jitter and flip
 1e-6 (elementwise, same formulas); resizes 1e-5 (weights built in another
 precision, contracted in another order).
+
+Some of this file's tests are in test_torch_port_resize.py (the bilinear resize, the LANCZOS pyramid), so that each file has at most
+seven tests: a file with more queues ahead of tests/test_zoo_training.py,
+the suite's longest (ROADMAP.md, "The time budget").
 """
 
 import jax
@@ -15,13 +19,12 @@ import torch
 
 from baseboostdepth_tpu import losses as jl
 from baseboostdepth_tpu.data import augment as ja
-from baseboostdepth_tpu.ops import resize as jr
 from baseboostdepth_tpu.ops.ssim import reprojection_loss as j_reprojection_loss
 from baseboostdepth_tpu.ops.ssim import ssim as j_ssim
 from baseboostdepth_tpu_torch import losses as tl
 from baseboostdepth_tpu_torch.data import augment as ta
-from baseboostdepth_tpu_torch.ops import resize as tr
 from baseboostdepth_tpu_torch.ops import ssim as ts
+from torch_port_helpers import lowered_priority
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -31,7 +34,8 @@ def one_torch_thread():
     CPU and slows every worker."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 
@@ -167,27 +171,3 @@ def test_color_jitter_and_flip():
     # same host-side draw from the same numpy generator
     np.testing.assert_array_equal(ta.sample_jitter_params(np.random.default_rng(1), 5, 3),
                                   ja.sample_jitter_params(np.random.default_rng(1), 5, 3))
-
-
-@pytest.mark.parametrize("size", [(24, 80), (96, 320), (30, 50)])
-def test_resize_bilinear(size):
-    x = np.random.default_rng(9).random((2, 48, 160, 1)).astype(np.float32)
-    np.testing.assert_allclose(
-        tr.resize_bilinear(torch.from_numpy(x), *size).numpy(),
-        np.asarray(jr.resize_bilinear(jnp.asarray(x), *size)), atol=ATOL,
-    )
-    np.testing.assert_array_equal(
-        tr.upsample2x_nearest(torch.from_numpy(x)).numpy(),
-        np.asarray(jr.upsample2x_nearest(jnp.asarray(x))),
-    )
-
-
-@pytest.mark.parametrize("shape", [(2, 64, 128, 3), (1, 50, 90, 3)])
-def test_lanczos_pyramid_four_levels(shape):
-    x = np.random.default_rng(10).random(shape).astype(np.float32)
-    jp = jr.lanczos_pyramid(jnp.asarray(x), num_scales=4)
-    tp = tr.lanczos_pyramid(torch.from_numpy(x), num_scales=4)
-    assert len(tp) == 4
-    for a, b in zip(jp, tp):
-        assert tuple(b.shape) == a.shape
-        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=ATOL)

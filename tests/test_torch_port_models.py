@@ -6,9 +6,12 @@ models/convert.py::from_jax must invert them exactly.
 64x128 images (ResNet-18's depth is fixed, so the small size comes from the
 image). Tolerance 1e-4 relative to each output's largest magnitude: the
 same convolutions summed in another order through 20 layers and BatchNorm.
+
+Some of this file's tests are in test_torch_port_models_heads.py (init_disp_bias, height 32), so that each file has at most
+seven tests: a file with more queues ahead of tests/test_zoo_training.py,
+the suite's longest (ROADMAP.md, "The time budget").
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,9 +25,8 @@ from baseboostdepth_tpu.models.torch_import import (
     resnet_torch_to_flax,
 )
 from baseboostdepth_tpu_torch.models import build_depth_net, build_pose_net
-from baseboostdepth_tpu.training.step import init_disp_bias as jax_init_disp_bias
 from baseboostdepth_tpu_torch.models.convert import from_jax
-from baseboostdepth_tpu_torch.training.step import init_disp_bias
+from torch_port_helpers import lowered_priority
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -34,7 +36,8 @@ def one_torch_thread():
     CPU and slows every worker."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 
@@ -168,30 +171,3 @@ def test_state_dict_names_follow_the_reference(nets):
         assert k in dkeys, k
     assert tuple(tp.state_dict()["encoder.encoder.conv1.weight"].shape) == (64, 6, 7, 7)
     assert "decoder.net.3.weight" in pkeys
-
-
-def test_init_disp_bias(nets):
-    _, _, params, stats, td, _ = nets
-    before = {k: v.clone() for k, v in td.state_dict().items()}
-    ref, _ = from_jax({"depth": jax_init_disp_bias(params["depth"], -2.2), "pose": params["pose"]},
-                      stats)
-    init_disp_bias(td, -2.2)
-    for k, v in td.state_dict().items():
-        np.testing.assert_array_equal(v.numpy(), ref[k].numpy(), err_msg=k)
-    td.load_state_dict(before)
-
-
-def test_depth_net_at_height_32(nets):
-    """At 32x64 the decoder's coarsest stage is 1 pixel high: jnp.pad's
-    reflect padding repeats the row there, and the port's decoder does the
-    same (torch's reflect padding refuses a length-1 axis)."""
-    jd, _, params, stats, td, _ = nets
-    x = np.random.default_rng(4).random((2, 32, 64, 3)).astype(np.float32)
-    jout = jd.apply({"params": params["depth"], "batch_stats": stats["depth"]},
-                    jnp.asarray(x), train=False)
-    td.eval()
-    with torch.no_grad():
-        tout = td(torch.from_numpy(x))
-    for a, b in zip(tout, jout):
-        assert tuple(a.shape) == b.shape
-        _close(a.numpy(), b)

@@ -58,6 +58,7 @@ from baseboostdepth_tpu_torch.models.depth_decoder import init_decoder_
 from baseboostdepth_tpu_torch.models.monovit import MonoViTDepthNet, MPViT, drop_path
 from baseboostdepth_tpu_torch.models.torch_import import load_into, mpvit_key_map
 from tests.test_torch_port_zoos import perturb_
+from torch_port_helpers import lowered_priority
 
 # gradients that vanish in exact arithmetic (a BN bias ahead of another
 # batch-statistics BN, which removes any per-channel constant) are float64
@@ -72,7 +73,8 @@ def one_torch_thread():
     """One intra-op thread: the suite runs files in parallel processes."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 

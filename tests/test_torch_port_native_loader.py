@@ -23,6 +23,7 @@ from baseboostdepth_tpu_torch.data import curriculum as tcur
 from baseboostdepth_tpu_torch.data import kitti as tkitti
 from baseboostdepth_tpu_torch.data import loader as tloader
 from baseboostdepth_tpu_torch.native import loader as tnative
+from torch_port_helpers import lowered_priority
 
 FOLDER = "2011_09_26/2011_09_26_drive_0001_sync"
 N_FRAMES = 16
@@ -35,7 +36,8 @@ def one_torch_thread():
     CPU and slows every worker."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 

@@ -23,6 +23,12 @@ Inputs where pred == target over whole windows hit the Pallas kernel's
 subgradients (0 at a clip bound, sign(0) = 0), which the port keeps; away
 from such ties the fused gradient equals autodiff of the port's plain
 `ops/ssim.py` to 1e-4 of its largest entry, the JAX test's own bound.
+
+Some of this file's tests are in test_torch_port_ssim_fused_edges.py (the first two EDGE_SHAPES, N = 65,537) and
+test_torch_port_ssim_fused_grad.py (the last EDGE_SHAPE, the gradient against
+autodiff, slot_losses), so that each file has at most
+seven tests: a file with more queues ahead of tests/test_zoo_training.py,
+the suite's longest (ROADMAP.md, "The time budget").
 """
 
 import jax
@@ -32,13 +38,15 @@ import pytest
 import torch
 
 from baseboostdepth_tpu.ops.ssim_pallas import reprojection_loss_fused as j_fused
-from baseboostdepth_tpu_torch import losses as tl
 from baseboostdepth_tpu_torch.ops import ssim as ts
 from baseboostdepth_tpu_torch.ops import ssim_cuda as tsc
+from torch_port_helpers import lowered_priority
 
 SHAPES = [(2, 24, 40), (3, 17, 29)]
 N_MANY = 65537  # more images than a CUDA grid's z axis holds (65,535)
 EDGE_SHAPES = [(1, 2, 2), (1, 3, 5), (1, 9, 70)]
+#: their test ids, which the two files that split them keep
+EDGE_IDS = [f"shape{i}" for i in range(len(EDGE_SHAPES))]
 KINDS = ["correlated", "uncorrelated", "anticorrelated"]
 
 
@@ -49,7 +57,8 @@ def one_torch_thread():
     CPU and slows every worker."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 
@@ -117,61 +126,14 @@ def test_fused_matches_pallas_kernels(shape, kind):
     assert np.abs(inner).max() <= atol, np.abs(inner).max()
 
 
-@pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("shape", EDGE_SHAPES)
-def test_fused_matches_pallas_kernels_edge_shapes(shape, kind):
+def check_edge_shape(shape, kind):
+    """test_fused_matches_pallas_kernels_edge_shapes at one case (its
+    EDGE_SHAPES are split between test_torch_port_ssim_fused_edges.py and
+    test_torch_port_ssim_fused_grad.py)."""
     pred, tgt = _inputs(sum(shape) + KINDS.index(kind), shape, kind, tie=False)
     cot = np.random.default_rng(7).random(shape + (1,), dtype=np.float32)
     g, _ = _assert_matches_pallas(pred, tgt, cot, out_atol=2e-6)
     assert np.abs(g).max() > 0
-
-
-def test_fused_takes_more_images_than_a_grid_axis_holds():
-    """N = 65,537 images of 2x2, more than a CUDA grid's z axis holds: the
-    wrapper takes them (it once refused N > 65,535 on any device), and its
-    loss map and gradient agree with the interpret-mode Pallas kernels on
-    every 128th image and on the images around 65,535, at the file's
-    tolerances (1e-6; 1e-5 of the largest gradient entry). The JAX function
-    computes each image alone, so those images' inputs give those images'
-    outputs. On the CPU this runs the plain version, which has no chunks:
-    the CUDA launchers' two launches (65,535 images, then 2) are held to
-    it on the card by chip_smoke.py::image_count_checks.
-    Each image is a checkerboard (corners (0,0) and (1,1) in [0.7, 1], the
-    others in [0, 0.3]), so every reflect-folded window has spread: on
-    near-flat 2x2 images SSIM's cancellation (E[x^2] - mu^2) decides the
-    last digits, and there the port and JAX differed by up to 7.2e-6 in
-    the loss map while each was as far from a float64 computation of the
-    same formula (6.3e-6 and 7.1e-6): float32 rounding on both sides, not
-    a fault of either. About 3 s on one CPU worker."""
-    shape = (N_MANY, 2, 2)
-    rng = np.random.default_rng(17)
-    tgt = rng.random(shape + (3,), dtype=np.float32) * np.float32(0.3)
-    tgt[:, 0, 0] += np.float32(0.7)
-    tgt[:, 1, 1] += np.float32(0.7)
-    pred = np.clip(tgt + 0.1 * rng.standard_normal(tgt.shape), 0, 1).astype(np.float32)
-    cot = np.random.default_rng(8).random(shape + (1,), dtype=np.float32)
-    out, g, _ = _port_fused(pred, tgt, cot)
-    assert out.shape == shape + (1,) and g.shape == shape + (3,)
-
-    picked = np.r_[np.arange(0, N_MANY, 128), np.arange(65530, N_MANY)]
-    jout, jg = _jax_fused(pred[picked], tgt[picked], cot[picked])
-    np.testing.assert_allclose(out[picked], jout, rtol=0, atol=1e-6)
-    np.testing.assert_allclose(g[picked], jg, rtol=0, atol=1e-5 * np.abs(jg).max())
-    assert np.abs(jg).max() > 0
-
-
-@pytest.mark.parametrize("shape", SHAPES)
-def test_fused_gradient_matches_autodiff_away_from_ties(shape):
-    pred, tgt = _inputs(40 + sum(shape), shape, "correlated", tie=False)
-    cot = np.random.default_rng(6).random(shape + (1,), dtype=np.float32)
-    out, g, _ = _port_fused(pred, tgt, cot)
-
-    tp = torch.tensor(pred, requires_grad=True)
-    ref = ts.reprojection_loss(tp, torch.from_numpy(tgt))
-    (ref * torch.from_numpy(cot)).sum().backward()
-    np.testing.assert_allclose(out, ref.detach().numpy(), rtol=0, atol=2e-6)
-    err = np.abs(g - tp.grad.numpy()).max() / np.abs(tp.grad.numpy()).max()
-    assert err < 1e-4, err
 
 
 def test_dispatch_and_argument_checks():
@@ -202,19 +164,3 @@ def test_dispatch_and_argument_checks():
         tsc.ssim_fused_fwd(p.transpose(1, 2).contiguous().transpose(1, 2), t)
     with pytest.raises(ValueError):
         tsc.ssim_fused_fwd(p[:, :1].contiguous(), t[:, :1].contiguous())
-
-
-def test_slot_losses_photo_options():
-    """slot_losses' impl and photo_fn reach the fused loss; the expanded
-    target and the slot slices arrive contiguous."""
-    rng = np.random.default_rng(3)
-    B, S, H, W = 2, 3, 10, 14
-    images = torch.from_numpy(rng.random((B, S + 1, H, W, 3), dtype=np.float32))[:, :S]
-    target = torch.from_numpy(rng.random((B, H, W, 3), dtype=np.float32))
-    valid = torch.tensor([[True, False, True], [True, True, True]])
-    fused = tl.slot_losses(target, images, valid, impl="fused")
-    via_fn = tl.slot_losses(target, images, valid, photo_fn=tsc.reprojection_loss_fused)
-    plain = tl.slot_losses(target, images, valid)
-    np.testing.assert_array_equal(fused.numpy(), via_fn.numpy())
-    np.testing.assert_allclose(fused.numpy(), plain.numpy(), rtol=0, atol=2e-6)
-    assert float(fused[0, 1].min()) == tl._MASKED

@@ -73,6 +73,7 @@ from baseboostdepth_tpu_torch.models.convert import from_jax
 from baseboostdepth_tpu_torch.models.pose import realistic_pose_bias_
 from baseboostdepth_tpu_torch.training.batch import make_batch, num_frames
 from baseboostdepth_tpu_torch.training.step import StepStatic, init_state, make_train_step
+from torch_port_helpers import lowered_priority
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -82,7 +83,8 @@ def one_torch_thread():
     CPU and slows every worker."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 

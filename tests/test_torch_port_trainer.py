@@ -4,6 +4,12 @@ for the JAX package (device="cpu", 32x64, batch 8, float32), plus
 `_static_for_stage` against JAX's. Since the port refuses no configuration
 any more, `dist.enabled` (two processes) is tested in
 tests/test_torch_port_dist.py.
+
+Some of this file's tests are in test_torch_port_trainer_options.py (the lifted options, the epoch without
+the prefetcher) and test_torch_port_trainer_checkpoints.py (step seeds,
+checkpoint garbage collection), so that each file has at most
+seven tests: a file with more queues ahead of tests/test_zoo_training.py,
+the suite's longest (ROADMAP.md, "The time budget").
 """
 
 import glob
@@ -18,9 +24,8 @@ from PIL import Image
 from baseboostdepth_tpu_torch.config import Config
 from baseboostdepth_tpu_torch.data.curriculum import stage_for_epoch
 from baseboostdepth_tpu_torch.data.loader import KittiTrainLoader
-from baseboostdepth_tpu_torch.training.checkpoint import CheckpointManager
-from baseboostdepth_tpu_torch.training import trainer as trainer_mod
-from baseboostdepth_tpu_torch.training.trainer import Trainer, prefetch_to_device, step_seed
+from baseboostdepth_tpu_torch.training.trainer import Trainer, prefetch_to_device
+from torch_port_helpers import lowered_priority
 
 FOLDER = "2011_09_26/2011_09_26_drive_0001_sync"
 
@@ -32,7 +37,8 @@ def one_torch_thread():
     CPU and slows every worker."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 
@@ -189,37 +195,6 @@ def _resnet_file(path, num_layers, seed=0):
     return path
 
 
-@pytest.mark.parametrize("override", [
-    ("model", "weights_init", "pretrained"), ("model", "zoo", "sql"),
-    ("model", "num_layers", 50), ("model", "merged_warp", False),
-    ("model", "pose_input_scale", 0.5),
-])
-def test_lifted_configuration_builds(tiny_kitti, tmp_path, override):
-    """What the port refused until this slice now builds a Trainer on the
-    CPU whose StepStatic carries it (the pretrained case from a local
-    ResNet-18 file, which seeds both encoders)."""
-    data, splits, logs = tiny_kitti
-    cfg = _config(data, splits, logs, "lifted")
-    sec, field, value = override
-    setattr(getattr(cfg, sec), field, value)
-    if value == "pretrained":
-        cfg.model.pretrained_path = _resnet_file(str(tmp_path / "rn18.pth"), 18)
-    tr = Trainer(cfg, device="cpu")
-    st = tr._static_for_stage(stage_for_epoch(0, True, sql=cfg.model.zoo == "sql"))
-    assert (st.zoo, st.num_layers) == (cfg.model.zoo, cfg.model.num_layers)
-    assert st.merged_warp == (value is not False)
-    assert st.pose_input_scale == cfg.model.pose_input_scale
-    assert st.scales == ((0,) if cfg.model.zoo == "sql" else (0, 1, 2, 3))
-    if value == 50:
-        assert tr.state.depth_net.encoder.num_ch_enc == (64, 256, 512, 1024, 2048)
-    if value == "pretrained":
-        w = torch.load(cfg.model.pretrained_path)["conv1.weight"]
-        assert torch.equal(tr.state.depth_net.encoder.encoder.conv1.weight, w)
-        assert torch.equal(tr.state.pose_net.encoder.encoder.conv1.weight,
-                           torch.cat([w, w], 1) / 2)
-    tr.logger.close()
-
-
 def test_cli_trains_cadepth_from_pretrained_encoders(tiny_kitti, tmp_path, monkeypatch):
     """cli.train, one epoch of one step: cadepth (the two-call warp
     schedule at its default) from a local ResNet-50 file given as
@@ -336,78 +311,5 @@ def test_prefetch_to_device_passes_batches_through_on_the_cpu(tiny_kitti):
         next(it)
 
 
-def test_trainer_epoch_identical_without_the_prefetcher(tiny_kitti, monkeypatch):
-    """One CPU epoch of two steps through prefetch_to_device and one through
-    a plain loop over the loader: the same logged metrics (but the rate and
-    the wall-clock stamp) and the same weights."""
-    data, splits, logs = tiny_kitti
-    runs = {}
-    for name, prefetch in (("prefetch", prefetch_to_device),
-                           ("plain", lambda batches, device: ((b, b) for b in batches))):
-        monkeypatch.setattr(trainer_mod, "prefetch_to_device", prefetch)
-        cfg = _config(data, splits, logs, f"prefetch_{name}")
-        cfg.optim.batch_size = 4
-        cfg.log.log_frequency = 1
-        cfg.log.image_panels = False
-        tr = Trainer(cfg, device="cpu")
-        tr.train()
-        lines = [json.loads(ln) for ln in open(os.path.join(logs, f"prefetch_{name}",
-                                                             "metrics.jsonl"))]
-        logged = [{k: v for k, v in m.items() if k not in ("imgs_per_sec", "t")}
-                  for m in lines if "imgs_per_sec" in m]
-        runs[name] = (logged, _params(tr.state))
-    assert len(runs["prefetch"][0]) == 1 and runs["prefetch"][0] == runs["plain"][0]
-    a, b = runs["prefetch"][1], runs["plain"][1]
-    assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
-
-
-def test_step_seed_is_a_pure_function():
-    assert step_seed(42, 7) == step_seed(42, 7)
-    assert len({step_seed(42, s) for s in range(100)}) == 100
-    assert step_seed(42, 0) != step_seed(43, 0)
-    assert 0 <= step_seed(-1, 3) < 2**63
-
-
 def _state(v):
     return {"w": torch.full((4,), float(v)), "step": torch.tensor(v)}
-
-
-def test_best_checkpoint_survives_gc(tmp_path):
-    mgr = CheckpointManager(str(tmp_path), max_to_keep=3)
-    mgr.save(1, _state(1), {"epoch": 0})
-    mgr.save(2, _state(2), {"epoch": 0, "best": True, "abs_rel": 0.1})
-    for s in range(3, 10):
-        mgr.save(s, _state(s), {"epoch": s // 3})
-    steps = mgr.all_steps()
-    assert 2 in steps, "pinned best checkpoint was garbage-collected"
-    assert [s for s in steps if s != 2] == [7, 8, 9]
-    restored, extra = mgr.restore(_state(0), step=2)
-    assert float(restored["w"][0]) == 2.0
-    assert extra["best"] is True and extra["pin"] is True
-    assert mgr.latest_step() == 9
-    # no temporary names are left behind
-    assert sorted(os.listdir(tmp_path)) == sorted(
-        [str(s) for s in steps] + [f"extra_{s}.json" for s in steps])
-
-
-def test_pins_persist_across_restart(tmp_path):
-    mgr = CheckpointManager(str(tmp_path), max_to_keep=2)
-    mgr.save(1, _state(1), {"best": True, "abs_rel": 0.2})
-    mgr.save(2, _state(2), {})
-    mgr2 = CheckpointManager(str(tmp_path), max_to_keep=2)
-    for s in range(3, 8):
-        mgr2.save(s, _state(s), {})
-    assert 1 in mgr2.all_steps()
-    restored, _ = mgr2.restore(_state(0), step=1)
-    assert float(restored["w"][0]) == 1.0
-
-
-def test_gc_removes_stale_sidecars(tmp_path):
-    mgr = CheckpointManager(str(tmp_path), max_to_keep=1)
-    for s in range(1, 4):
-        mgr.save(s, _state(s), {"epoch": s})
-    assert mgr.all_steps() == [3]
-    sidecars = sorted(glob.glob(os.path.join(str(tmp_path), "extra_*.json")))
-    assert [os.path.basename(p) for p in sidecars] == ["extra_3.json"]
-    with pytest.raises(FileNotFoundError):
-        CheckpointManager(str(tmp_path / "empty")).restore(_state(0))

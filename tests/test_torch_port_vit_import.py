@@ -37,6 +37,7 @@ from tests.test_torch_port_import import (
 from tests.test_torch_port_zoos import depth_to_flax, pose_to_flax
 from tests.torch_mpvit_ref import mpvit_small
 from tests.torch_zoo_refs import make_hrnet18
+from torch_port_helpers import lowered_priority
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -44,7 +45,8 @@ def one_torch_thread():
     """One intra-op thread: the suite runs files in parallel processes."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 

@@ -81,6 +81,7 @@ from tests.test_torch_port_diffnet import CUT, diffnet_to_flax
 from tests.test_torch_port_monovit import NARROW, monovit_to_flax
 from tests.test_torch_port_step import B, GRAD_ATOL, GRAD_LEAF_RMS, GRAD_LEAF_RTOL, H, W, _batch
 from tests.test_torch_port_zoos import pose_to_flax
+from torch_port_helpers import lowered_priority
 
 ADAM_EPS = 1e-8
 BN_FLOOR = 5e-5  # of each statistics tensor's largest entry (ROADMAP.md, C)
@@ -92,7 +93,8 @@ def one_torch_thread():
     """One intra-op thread: the suite runs files in parallel processes."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 

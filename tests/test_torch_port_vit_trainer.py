@@ -16,6 +16,7 @@ import torch
 from baseboostdepth_tpu_torch.data.curriculum import stage_for_epoch
 from baseboostdepth_tpu_torch.training.trainer import Trainer
 from tests.test_torch_port_trainer import _config, _params, tiny_kitti  # noqa: F401
+from torch_port_helpers import lowered_priority
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -23,7 +24,8 @@ def one_torch_thread():
     """One intra-op thread: the suite runs files in parallel processes."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 

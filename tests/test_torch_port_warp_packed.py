@@ -29,6 +29,7 @@ from baseboostdepth_tpu.ops import warp_pallas as wp
 from baseboostdepth_tpu_torch.ops import cuda_build
 from baseboostdepth_tpu_torch.ops import sampling as tsampling
 from baseboostdepth_tpu_torch.ops import warp_cuda as tw
+from torch_port_helpers import lowered_priority
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -38,7 +39,8 @@ def one_torch_thread():
     CPU and slows every worker."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 

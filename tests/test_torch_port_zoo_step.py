@@ -53,6 +53,11 @@ reproducible from its generator and differs from rate 0.
 
 Single-worker time (one pytest process, one torch thread, Intel Xeon):
 about 120 s, JAX compiling most of it.
+
+Some of this file's tests are in test_torch_port_zoo_step_sql_eval.py (SQLdepth's eval and debug
+forwards), so that each file has at most
+seven tests: a file with more queues ahead of tests/test_zoo_training.py,
+the suite's longest (ROADMAP.md, "The time budget").
 """
 
 import dataclasses
@@ -73,6 +78,7 @@ from baseboostdepth_tpu_torch.training import step as step_mod
 from baseboostdepth_tpu_torch.training.batch import make_batch, num_frames
 from baseboostdepth_tpu_torch.training.step import StepStatic, init_state, loss_forward
 from tests.test_torch_port_zoos import NoDropTransformerLayer, depth_to_flax, pose_to_flax
+from torch_port_helpers import lowered_priority
 
 GRAD_ATOL = 2e-5  # per entry, with rtol 1e-4
 GRAD_LEAF_RTOL, GRAD_LEAF_RMS = 3e-2, 1e-7  # per leaf, L2
@@ -96,7 +102,8 @@ def one_torch_thread():
     """One intra-op thread: the suite runs files in parallel processes."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 
@@ -331,33 +338,3 @@ def test_sql_dropout_comes_from_the_generator():
     d = run(2)
     assert not torch.equal(a, d)
     assert torch.equal(d, run(None))  # rate 0 draws nothing from any generator
-
-
-def test_sql_eval_forwards_match_jax(monkeypatch):
-    """The evaluators' forwards on an SQLdepth network (metric depth, no
-    disp_to_depth, at H/2): evaluation/depth.py::make_disp_forward and the
-    step's make_eval_forward against the JAX package's, eval mode, to 1e-4
-    of the depth's largest magnitude (the forward tolerance of
-    test_torch_port_zoos.py)."""
-    from baseboostdepth_tpu.evaluation.depth import make_disp_forward as jax_disp_forward
-    from baseboostdepth_tpu.training.step import make_eval_forward as jax_eval_forward
-    from baseboostdepth_tpu_torch.evaluation.depth import make_disp_forward
-    from baseboostdepth_tpu_torch.training.step import make_eval_forward
-
-    monkeypatch.setattr(jax_sql, "TransformerLayer", NoDropTransformerLayer)
-    cfg = CASES["sql"]
-    jst, tst = _statics(cfg)
-    state = init_state(tst, device="cpu")
-    dp, ds = depth_to_flax(tst.zoo, state.depth_net.state_dict())
-    pp, ps = pose_to_flax(state.pose_net.state_dict())
-    params = jax.tree.map(jnp.asarray, {"depth": dp, "pose": pp})
-    stats = jax.tree.map(jnp.asarray, {"depth": ds, "pose": ps})
-    images = np.random.default_rng(6).uniform(0, 1, (1, cfg["H"], cfg["W"], 3)).astype(np.float32)
-    ref = np.asarray(jax_disp_forward(jst)(params, stats, jnp.asarray(images)))
-    assert ref.shape == (1, cfg["H"] // 2, cfg["W"] // 2)
-    for name, out in (("make_disp_forward", make_disp_forward(tst, "cpu")(state.depth_net, images)),
-                      ("make_eval_forward", make_eval_forward(tst, "cpu")(state.depth_net, images))):
-        assert tuple(out.shape) == ref.shape, name
-        _close(out.numpy(), ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max(), what=name)
-    np.testing.assert_array_equal(
-        np.asarray(jax_eval_forward(jst)(params, stats, jnp.asarray(images))), ref)

@@ -23,6 +23,12 @@ Tolerances, each stated where it is used:
 
 Single-worker time (one pytest process, one torch thread, Intel Xeon):
 about 70 s, JAX compiling most of it.
+
+Some of this file's tests are in test_torch_port_zoos_forward.py (the resize, the zoo forwards, the
+sql_large head) and test_torch_port_zoos_init.py (from_jax round trips,
+init_disp_bias), so that each file has at most
+seven tests: a file with more queues ahead of tests/test_zoo_training.py,
+the suite's longest (ROADMAP.md, "The time budget").
 """
 
 import jax
@@ -47,12 +53,10 @@ from baseboostdepth_tpu.models.torch_import import (
     sql_encoder_torch_to_flax,
     sql_head_torch_to_flax,
 )
-from baseboostdepth_tpu.ops.resize import resize_bilinear_align_corners as jax_resize_ac
-from baseboostdepth_tpu_torch.models import build_depth_net, build_pose_net
-from baseboostdepth_tpu_torch.models.convert import _encoder, from_jax
+from baseboostdepth_tpu_torch.models import build_depth_net
 from baseboostdepth_tpu_torch.models.resnet import ResnetEncoder, encoder_channels, init_encoder_
-from baseboostdepth_tpu_torch.models.sql import SQLDepthNet, SQLHead, init_sql_
-from baseboostdepth_tpu_torch.ops.resize import resize_bilinear_align_corners
+from baseboostdepth_tpu_torch.models.sql import SQLDepthNet, init_sql_
+from torch_port_helpers import lowered_priority
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -60,7 +64,8 @@ def one_torch_thread():
     """One intra-op thread: the suite runs files in parallel processes."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with lowered_priority():
+        yield
     torch.set_num_threads(n)
 
 
@@ -210,18 +215,6 @@ def test_encoder_train_forward_stats_and_grads_match_jax(num_layers):
         _close(st_t, st_j, rtol=1e-6, what=f"stats {jax.tree_util.keystr(path)}")
 
 
-@pytest.mark.parametrize("case", ["upscale", "downscale", "identity"])
-def test_resize_bilinear_align_corners_matches_jax(case):
-    shape, size = {"upscale": ((2, 3, 5, 4), (7, 11)), "downscale": ((2, 9, 13, 4), (4, 6)),
-                   "identity": ((2, 6, 8, 4), (6, 8))}[case]
-    x = _images(shape, seed=3)
-    ref = np.asarray(jax_resize_ac(jnp.asarray(x), *size))
-    out = resize_bilinear_align_corners(torch.from_numpy(x).permute(0, 3, 1, 2), *size)
-    assert out.shape == (shape[0], shape[3], *size)
-    # one weight from i * (H-1)/(h-1) here, from linspace in JAX: 1e-6
-    np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), ref, rtol=0, atol=1e-6)
-
-
 def _zoo_nets(zoo, seed):
     gen = torch.Generator().manual_seed(seed)
     if zoo == "sql":
@@ -233,118 +226,3 @@ def _zoo_nets(zoo, seed):
         jnet = JaxCADepthNet()
     perturb_(net, gen)
     return net, jnet
-
-
-@pytest.mark.parametrize("zoo,size", [("cadepth", (2, 64, 128)), ("sql", (1, 128, 512))])
-def test_zoo_forward_matches_jax(zoo, size, jax_sql_without_dropout):
-    """Eval mode (running statistics) and train mode (batch statistics and
-    their update) at the same weights; each output to 1e-4 of its largest
-    magnitude (SQL's metric depth reaches ~40, CADepth's disparities 1)."""
-    net, jnet = _zoo_nets(zoo, seed=4)
-    p, s = depth_to_flax(zoo, net.state_dict())
-    x = _images((*size, 3), seed=5)
-    xt = torch.from_numpy(x)
-
-    @jax.jit  # one compile: eager flax dispatches op by op, 3-4x slower here
-    def jax_forwards(p, s, x):
-        return (jnet.apply({"params": p, "batch_stats": s}, x, train=False),
-                jnet.apply({"params": p, "batch_stats": s}, x, train=True, mutable=["batch_stats"]))
-
-    jev, (jtr, mut) = jax_forwards(p, s, jnp.asarray(x))
-    with torch.no_grad():
-        net.eval()
-        ev = net(xt)
-        net.train()
-        tr = net(xt)
-    n = 1 if zoo == "sql" else 4
-    for k in range(n):
-        assert tuple(ev[k].shape) == jev[k].shape
-        _close(ev[k].numpy(), jev[k], what=f"eval output {k}")
-        _close(tr[k].numpy(), jtr[k], what=f"train output {k}")
-    pose_p, pose_s = pose_to_flax(build_pose_net().state_dict())
-    new_sd, _ = from_jax({"depth": p, "pose": pose_p},
-                         {"depth": jax.tree.map(np.asarray, mut["batch_stats"]), "pose": pose_s})
-    checked = 0
-    for name, buf in net.state_dict().items():
-        if "running_" in name:
-            _close(buf.numpy(), new_sd[name].numpy(), what=name)
-            checked += 1
-    assert checked > 0
-
-
-def test_sql_large_head_matches_jax(jax_sql_without_dropout):
-    """The sql_large head (patch 20, 128 queries and bins) on a 160x320 map,
-    8 x 16 = 128 patch tokens; sql_large cannot run at 640x192 (64 tokens),
-    in either package. Metric depth to 1e-4 of its largest magnitude."""
-    gen = torch.Generator().manual_seed(6)
-    net = SQLDepthNet(large=True, dropout_rate=0.0)
-    init_sql_(net, gen)
-    perturb_(net.head, gen)
-    head = net.head
-    assert isinstance(head, SQLHead) and head.query_nums == 128
-    x = np.random.default_rng(7).standard_normal((1, 160, 320, 32)).astype(np.float32)
-    p = sql_head_torch_to_flax(_np(head.state_dict()))
-    jhead = jax_sql.SQLHead(patch_size=20, dim_out=128, query_nums=128)
-    ref = jax.jit(jhead.apply, static_argnames="train")({"params": p}, jnp.asarray(x), train=False)
-    with torch.no_grad():
-        out = head.eval()(torch.from_numpy(x).permute(0, 3, 1, 2))
-    _close(out.permute(0, 2, 3, 1).numpy(), ref, what="sql_large depth")
-    with pytest.raises(ValueError, match="128 patch tokens"):
-        head(torch.zeros(1, 32, 96, 320))  # 4 x 16 = 64 tokens
-
-
-@pytest.mark.parametrize("zoo", ["md2_rn50", "cadepth", "sql"])
-def test_from_jax_round_trip(zoo):
-    """The port's state_dict -> JAX's importers -> from_jax gives it back
-    bit for bit, key for key; and a tree JAX initialises itself loads into
-    the port's network with strict=True."""
-    name = "md2" if zoo == "md2_rn50" else zoo
-    gen = torch.Generator().manual_seed(8)
-    net, pose = build_depth_net(name, 50, gen), build_pose_net(gen)
-    perturb_(net, gen)
-    dp, ds = depth_to_flax(name, net.state_dict())
-    pp, ps = pose_to_flax(pose.state_dict())
-    dsd, psd = from_jax({"depth": dp, "pose": pp}, {"depth": ds, "pose": ps})
-    for own, back in ((net.state_dict(), dsd), (pose.state_dict(), psd)):
-        assert set(own) == set(back)
-        for k, v in own.items():
-            if not k.endswith("num_batches_tracked"):
-                assert torch.equal(v, back[k]), k
-
-    h, w = (128, 512) if name == "sql" else (64, 128)
-    if name == "sql":
-        jnet = jax_sql.SQLDepthNet()
-    elif name == "cadepth":
-        jnet = JaxCADepthNet()
-    else:
-        from baseboostdepth_tpu.models import MD2DepthNet as JaxMD2DepthNet
-
-        jnet = JaxMD2DepthNet(num_layers=50)
-    v = jax.eval_shape(lambda: jnet.init(jax.random.PRNGKey(0), jnp.zeros((1, h, w, 3))))
-    zeros = jax.tree.map(lambda a: np.zeros(a.shape, np.float32), v)
-    jsd, _ = from_jax({"depth": zeros["params"], "pose": pp},
-                      {"depth": zeros.get("batch_stats", {}), "pose": ps})
-    net.load_state_dict(jsd, strict=True)
-
-
-@pytest.mark.parametrize("zoo", ["md2", "cadepth", "sql"])
-def test_init_disp_bias_reaches_every_disparity_head(zoo):
-    """init_disp_bias sets the bias of every disparity head the JAX
-    package's sets (each `dispconv` in its tree): md2's four, CADepth's four,
-    none in SQLdepth; nothing else changes."""
-    from baseboostdepth_tpu.training.step import init_disp_bias as jax_init_disp_bias
-    from baseboostdepth_tpu_torch.training.step import init_disp_bias
-
-    gen = torch.Generator().manual_seed(10)
-    net, pose = build_depth_net(zoo, 18, gen), build_pose_net(gen)
-    dp, ds = depth_to_flax(zoo, net.state_dict())
-    pp, ps = pose_to_flax(pose.state_dict())
-    before = {k: v.clone() for k, v in net.state_dict().items()}
-    init_disp_bias(net, -2.2)
-    ref, _ = from_jax({"depth": jax.tree.map(np.asarray, jax_init_disp_bias(dp, -2.2)),
-                       "pose": pp}, {"depth": ds, "pose": ps})
-    changed = [k for k, v in net.state_dict().items() if not torch.equal(v, before[k])]
-    assert len(changed) == (0 if zoo == "sql" else 4)
-    for k, v in net.state_dict().items():
-        if not k.endswith("num_batches_tracked"):
-            assert torch.equal(v, ref[k]), k
