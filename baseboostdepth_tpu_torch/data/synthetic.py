@@ -27,7 +27,10 @@ One 640x192 render takes seconds on a CPU core.
 
 from __future__ import annotations
 
+import functools
+import multiprocessing
 import os
+from concurrent.futures import ProcessPoolExecutor
 from dataclasses import dataclass, field
 from typing import List, Tuple
 
@@ -244,8 +247,38 @@ class SyntheticScene:
         """-> (uint8 image [H,W,3], float32 depth [H,W]) for frame i."""
         C = self.camera_center(i) if side == "l" else self.stereo_center(i)
         R = self.camera_rotation(i)
-        rgb, depth = self._trace(C, R, K, width, height)
+        # rays parallel to the ground or the sky plane divide by zero, and
+        # the inf and nan that follow are handled as the JAX package's
+        # renderer handles them (plane masks, nan_to_num); silencing the
+        # warnings changes no value
+        with np.errstate(divide="ignore", invalid="ignore"):
+            rgb, depth = self._trace(C, R, K, width, height)
         return (rgb * 255.0 + 0.5).astype(np.uint8), depth
+
+
+def _render_file(scene: SyntheticScene, K: np.ndarray, width: int, height: int, save: dict,
+                 i: int, side: str, path: str) -> np.ndarray:
+    """Render frame i of one camera into the image file `path` (`save`: PIL's
+    save options); -> its depth."""
+    from PIL import Image
+
+    img, depth = scene.render(i, side, K, width, height)
+    Image.fromarray(img).save(path, **save)
+    return depth
+
+
+def _render_files(scene: SyntheticScene, jobs, K: np.ndarray, width: int, height: int,
+                  workers: int, save: dict) -> List[np.ndarray]:
+    """The depths of `jobs` ((frame, side, path) each, rendered and written
+    by _render_file), in order; with workers > 1 in that many spawned
+    processes. Each render depends only on its frame and side, so the files
+    are the same bytes at any worker count."""
+    render = functools.partial(_render_file, scene, K, width, height, save)
+    frames, sides, paths = zip(*jobs)
+    if workers <= 1:
+        return list(map(render, frames, sides, paths))
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return list(pool.map(render, frames, sides, paths, chunksize=4))
 
 
 # --------------------------------------------------------------------------
@@ -261,8 +294,10 @@ def materialize_kitti_layout(
     val_fraction: float = 0.2,
     jpeg_quality: int = 95,
     scene: SyntheticScene | None = None,
+    workers: int = 1,
 ) -> Tuple[str, str]:
-    """Render a SyntheticScene into a KITTI-raw tree.
+    """Render a SyntheticScene into a KITTI-raw tree (the frames in
+    `workers` processes; the files are the same bytes at any count).
 
     Writes:
       <root>/synth_drive/image_0{2,3}/data/{i:010d}.jpg
@@ -276,8 +311,6 @@ def materialize_kitti_layout(
     val_fraction of them are held out for validation. Returns
     (data_path, splits_dir).
     """
-    from PIL import Image
-
     from baseboostdepth_tpu_torch.data.kitti import intrinsics
 
     scene = scene or SyntheticScene(seed=seed)
@@ -287,16 +320,11 @@ def materialize_kitti_layout(
     for cam in (2, 3):
         os.makedirs(os.path.join(data_dir, f"image_0{cam}", "data"), exist_ok=True)
 
-    depths = {}
-    for i in range(n_frames):
-        for cam, side in ((2, "l"), (3, "r")):
-            img, depth = scene.render(i, side, K, width, height)
-            Image.fromarray(img).save(
-                os.path.join(data_dir, f"image_0{cam}", "data", f"{i:010d}.jpg"),
-                quality=jpeg_quality,
-            )
-            if side == "l":
-                depths[i] = depth
+    jobs = [(i, side, os.path.join(data_dir, f"image_0{cam}", "data", f"{i:010d}.jpg"))
+            for i in range(n_frames) for cam, side in ((2, "l"), (3, "r"))]
+    rendered = _render_files(scene, jobs, K, width, height, workers,
+                              {"quality": jpeg_quality})
+    depths = {i: d for (i, side, _), d in zip(jobs, rendered) if side == "l"}
 
     usable = list(range(margin, n_frames - margin))
     n_val = max(1, int(len(usable) * val_fraction))

@@ -106,7 +106,16 @@ In order, it
      --dist.enabled under torch.distributed.run with one process (NCCL):
      one epoch and a resumed second, checkpoints from the lead; prints the
      NCCL version;
- 12. prints timings (CUDA events, after warm-up) beside the card's name and
+ 12. the port's user tools (synth_phase): tools.synthetic_benchmark renders
+     a 30-frame synthetic scene at 640x192 under build/ and trains md2 on
+     it (bf16, batch 12, 2 epochs: one step early, one late), its kernel
+     launches held to expected_launches and its result.json to the JAX
+     tool's keys with finite metrics; tools.synthetic_pose_eval on its
+     checkpoint; tools.preflight on the scene (every check PASS);
+     tools.verify_reference_parity --pretrained_start for monovit on
+     replica bytes, and --weights on the trained state saved in the
+     reference's layout against cli.evaluate_depth's abs_rel;
+ 13. prints timings (CUDA events, after warm-up) beside the card's name and
      power limit, bn_sums' line (its checks, times and launches on the
      main path), a JSON line describing each kernel, and last
      {"ok": true, "device": {...}}.
@@ -1812,6 +1821,147 @@ def zoo_trainer_phase(torch, card, root):
     return {"launches": launches, "wall_s": walls}
 
 
+SYNTH_FRAMES = 30  # synth_phase's scene: 16 usable frames, 13 train, 3 val
+SYNTH_ODOM_FRAMES = 12
+
+
+def replica_weights_file(torch, zoo: str, path: str) -> str:
+    """The replica of monovit's (MPViT-small, tests/torch_mpvit_ref.py) or
+    diffnet's (HRNet-18, tests/torch_zoo_refs.py) ImageNet encoder with
+    random weights, saved as the released file stands in the runbook:
+    round-tripped through the module, so that tensors shared across blocks
+    carry one value under all their keys."""
+    from baseboostdepth_tpu_torch.tools.verify_reference_parity import replica
+
+    model = replica(zoo)
+    g = torch.Generator().manual_seed(0)
+    sd = model.state_dict()
+    for k, v in sd.items():
+        if k.endswith("running_var"):
+            sd[k] = torch.rand(v.shape, generator=g) * 0.5 + 0.5
+        elif not k.endswith("num_batches_tracked"):
+            sd[k] = torch.randn(v.shape, generator=g) * 0.05
+    model.load_state_dict(sd)
+    torch.save(model.state_dict(), path)
+    return path
+
+
+def save_reference_folder(torch, state, folder: str) -> None:
+    """md2's networks in the reference's weights-folder layout (encoder.pth,
+    depth.pth, pose_encoder.pth, pose.pth), as IMPORTERS["md2"] reads it."""
+    os.makedirs(folder)
+    for name, module in (("encoder", state.depth_net.encoder),
+                         ("depth", state.depth_net.decoder),
+                         ("pose_encoder", state.pose_net.encoder),
+                         ("pose", state.pose_net.decoder)):
+        torch.save(module.state_dict(), os.path.join(folder, f"{name}.pth"))
+
+
+def synth_phase(torch, card, root):
+    """The port's user tools, in `root` (the working directory meanwhile):
+    tools.synthetic_benchmark renders a SYNTH_FRAMES-frame scene at 640x192
+    (a process per core) and trains md2 on it (bf16, batch 12, disp bias
+    -2.2, 2 epochs with the curriculum switch at 1, unbucketed so that the
+    13 train samples make one step in each stage), its kernel launches
+    counted and held to expected_launches for each epoch's stage; its
+    result.json with the JAX tool's keys and finite metrics;
+    tools.synthetic_pose_eval on its checkpoint (a SYNTH_ODOM_FRAMES-frame
+    sequence at 192x64); tools.preflight on the scene's synth split, every
+    check PASS; tools.verify_reference_parity --pretrained_start for
+    monovit on replica bytes (forward parity, exit 0), and --weights on the
+    trained state saved in the reference's layout, expecting the abs_rel
+    that cli.evaluate_depth gives the same state (float32, the scene's
+    test list copied to an eigen split)."""
+    import contextlib
+    import io
+    import shutil
+
+    from baseboostdepth_tpu_torch.cli import evaluate_depth
+    from baseboostdepth_tpu_torch.config import Config
+    from baseboostdepth_tpu_torch.data.curriculum import stage_for_epoch
+    from baseboostdepth_tpu_torch.evaluation.depth import restore_state
+    from baseboostdepth_tpu_torch.ops.batch_norm import bn_sums
+    from baseboostdepth_tpu_torch.tools import preflight, synthetic_benchmark
+    from baseboostdepth_tpu_torch.tools import synthetic_pose_eval, verify_reference_parity
+    from baseboostdepth_tpu_torch.training.step import StepStatic
+
+    here = os.getcwd()
+    os.chdir(root)
+    try:
+        walls = {}
+        t0 = time.perf_counter()
+        argv = ["--root", "scene", "--n-frames", str(SYNTH_FRAMES), "--epochs", "2",
+                "--switch-epoch", "1", "--disp-bias", "-2.2", "--no-bucket"]
+        args = synthetic_benchmark.parse_args(argv)
+        synthetic_benchmark.ensure_scene("scene", SYNTH_FRAMES, args.width, args.height, 0)
+        walls["render"] = time.perf_counter() - t0
+        reset_launches()
+        result = synthetic_benchmark.main(argv, device="cuda")
+        launches, bn_launches = read_launches(), bn_sums.launches
+        cfg = synthetic_benchmark.make_config(args)
+        expect = dict.fromkeys(KERNELS, 0)
+        for epoch, steps in enumerate(result["epoch_steps"]):
+            stage = stage_for_epoch(epoch, cfg.method.trimin, cfg.method.curriculum_switch_epoch)
+            for n, c in expected_launches(StepStatic(scales=stage.scales)).items():
+                expect[n] += steps * c
+        check(result["epoch_steps"] == [1, 1], f"synth: steps per epoch {result['epoch_steps']}")
+        check(launches == expect, f"synth: kernel launches {launches}, expected {expect}")
+        check(bn_launches > 0, "synth: bn_sums never launched")
+        check(result["device"] == card, f"synth: result's device {result['device']!r}")
+        for when in ("init", "final"):
+            finite_metrics(f"synth {when}", result[when])
+        log = os.path.join("logs", cfg.log.model_name)
+        with open(os.path.join(log, "result.json")) as f:
+            check(json.load(f) == json.loads(json.dumps(result)), "synth: result.json")
+        ckpt = os.path.join(log, "checkpoints")
+
+        ates = finite_metrics("synth pose", synthetic_pose_eval.main(
+            ["--ckpt", ckpt, "--root", "odom", "--n-frames", str(SYNTH_ODOM_FRAMES)],
+            device="cuda"))
+
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                preflight.main(["--kt_path", "scene", "--splits_dir",
+                                os.path.join("scene", "splits"), "--split", "synth"],
+                               device="cuda")
+        finally:
+            print(out.getvalue(), end="")
+        lines = [ln for ln in out.getvalue().splitlines() if ln[:4] in ("PASS", "FAIL", "SKIP")]
+        check(len(lines) == 7 and all(ln.startswith("PASS") for ln in lines),
+              f"preflight: {lines}")
+
+        parity = verify_reference_parity.main(
+            ["--zoo", "monovit", "--pretrained_start",
+             replica_weights_file(torch, "monovit", "mpvit_small_replica.pth")], device="cuda")
+
+        # the trained state in the reference's layout, and as cli.evaluate_depth scores it
+        eval_cfg = Config.load(os.path.join(log, "config.json"))
+        eval_cfg.model.dtype = "float32"
+        eval_cfg.save("eval_config.json")
+        save_reference_folder(torch, restore_state(eval_cfg, ckpt), "weights")
+        splits = os.path.join("scene", "splits")
+        shutil.copytree(os.path.join(splits, "synth"), os.path.join(splits, "eigen"))
+        expected = evaluate_depth.main(["--config", "eval_config.json", "--checkpoint", ckpt],
+                                       device="cuda")
+        imported = verify_reference_parity.main(
+            ["--weights", "weights", "--kt_path", "scene", "--splits_dir", splits,
+             "--expected_abs_rel", repr(expected["abs_rel"])], device="cuda")
+        check(abs(imported["abs_rel"] - expected["abs_rel"]) <= 1e-6,
+              f"runbook --weights abs_rel {imported['abs_rel']} vs evaluate_depth's "
+              f"{expected['abs_rel']}")
+        walls["phase"] = time.perf_counter() - t0
+    finally:
+        os.chdir(here)
+    print(f"synth: init abs_rel {result['init']['abs_rel']:.4f} -> {result['final']['abs_rel']:.4f}"
+          f" after 2 steps; pose ATE {ates['ate_direct']:.4f}; preflight 7 PASS; runbook "
+          f"monovit parity {parity['worst_rel_err']:.2e}, --weights abs_rel "
+          f"{imported['abs_rel']:.6f} = evaluate_depth's; render {walls['render']:.1f} s "
+          f"({SYNTH_FRAMES} frames x2 cams), phase {walls['phase']:.1f} s [{card}]")
+    return {"launches": launches, "bn_sums_launches": bn_launches, "wall_s": walls,
+            "result": result, "ate": ates}
+
+
 DIST_RANKS = 2  # dist_phase (a): two ranks on the one card
 DIST_TIMEOUT_S = 600
 # the zoos whose float32 step dist_phase (a) also holds to one process
@@ -2274,6 +2424,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         dist_runs, dist_stats = dist_phase(torch, card, root)
         runs.update(dist_runs)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_synth_", dir=build_dir) as root:
+        runs["synth"] = synth_phase(torch, card, root)
     launches = {n: sum(r["launches"][n] for r in runs.values()) for n in KERNELS}
     check(all(launches.values()), f"a kernel of the path never launched: {launches}")
 

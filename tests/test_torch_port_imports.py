@@ -70,6 +70,10 @@ def test_every_port_module_was_imported(probe):
                  "baseboostdepth_tpu_torch.profile_step",
                  "baseboostdepth_tpu_torch.parallel",
                  "baseboostdepth_tpu_torch.parallel.sharding",
-                 "baseboostdepth_tpu_torch.ops.batch_norm"):
+                 "baseboostdepth_tpu_torch.ops.batch_norm",
+                 "baseboostdepth_tpu_torch.tools.synthetic_benchmark",
+                 "baseboostdepth_tpu_torch.tools.synthetic_pose_eval",
+                 "baseboostdepth_tpu_torch.tools.preflight",
+                 "baseboostdepth_tpu_torch.tools.verify_reference_parity"):
         assert name in imported
-    assert len(imported) >= 56
+    assert len(imported) >= 67

@@ -17,6 +17,7 @@ save what they saw, and the tests hold it against one process
 
 import contextlib
 import hashlib
+import importlib.util
 import numpy as np
 import os
 import subprocess
@@ -26,18 +27,38 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD_TIMEOUT_S = 120
 
 
+def _set_thread_priority(tid: int, nice: int) -> None:
+    # a thread may have ended since it was listed; raising a priority back
+    # needs root
+    with contextlib.suppress(ProcessLookupError, PermissionError):
+        os.setpriority(os.PRIO_PROCESS, tid, nice)
+
+
+def _thread_ids() -> list:
+    return [int(t) for t in os.listdir("/proc/self/task")]
+
+
 @contextlib.contextmanager
 def lowered_priority(increment: int = 19):
-    """This process at os.nice(+increment) inside the block (children started
-    there inherit it), its old priority back after it, so that a test worker
-    later handed another file runs that at normal priority."""
-    old = os.getpriority(os.PRIO_PROCESS, 0)
-    os.nice(increment)
+    """Every thread of this process at +increment inside the block (threads
+    and children started there inherit it), every thread at the process's
+    old priority after it, so that a test worker later handed another file
+    runs that at normal priority.
+
+    Each thread is set by its id: on Linux os.nice changes the calling
+    thread only, and a worker that ran a JAX file first already holds
+    XLA's thread pool, which would otherwise compute the port file's JAX
+    references at normal priority (and a pool that the block created would
+    stay lowered after it)."""
+    old = {tid: os.getpriority(os.PRIO_PROCESS, tid) for tid in _thread_ids()}
+    normal = os.getpriority(os.PRIO_PROCESS, 0)
+    for tid, nice in old.items():
+        _set_thread_priority(tid, min(nice + increment, 19))
     try:
         yield
     finally:
-        with contextlib.suppress(PermissionError):  # raising it back needs root
-            os.setpriority(os.PRIO_PROCESS, 0, old)
+        for tid in _thread_ids():
+            _set_thread_priority(tid, old.get(tid, normal))
 
 
 @contextlib.contextmanager
@@ -66,6 +87,16 @@ def wait_ranks(procs, timeout: float = CHILD_TIMEOUT_S) -> list:
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r}:\n{log[-4000:]}"
     return logs
+
+
+def jax_tool(name: str):
+    """The JAX package's tools/<name>.py as a fresh module (tools/ is not a
+    package; a fresh module also starts with fresh module state)."""
+    spec = importlib.util.spec_from_file_location(f"jax_tools_{name}",
+                                                  os.path.join(REPO, "tools", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def digest(arrays: dict) -> dict:
