@@ -27,7 +27,12 @@ positional table has 500 rows.
 Attention is written as matmul + softmax so that its dropout, like the
 feed-forward dropouts, draws from an explicit torch.Generator (the
 forward's `generator`; torch's default generator when None). A rate of 0
-draws nothing.
+draws nothing. The attention dropout is flax's `broadcast_dropout`, the
+default of the JAX head's `nn.MultiHeadDotProductAttention`: one keep mask
+[1, 1, N, N] per call, shared by every sample and head, drawn whole on
+every rank of a process group (`attention_keep`). The three feed-forward
+dropouts are per element, each rank taking its rows of the one-process
+draw (`dropout`).
 """
 
 from __future__ import annotations
@@ -53,6 +58,15 @@ def dropout(x: torch.Tensor, p: float, training: bool,
         return x
     keep = draw_local(torch.rand, x.shape, generator=generator, device=x.device) >= p
     return x * keep.to(x.dtype) * (1.0 / (1.0 - p))
+
+
+def attention_keep(n: int, p: float, generator: Optional[torch.Generator],
+                   device) -> torch.Tensor:
+    """The attention-dropout keep mask [1, 1, n, n] (bool, kept with
+    probability 1 - p), as flax draws it with broadcast_dropout: one mask for
+    the whole batch and every head. Every rank draws the same whole mask, as
+    JAX's step broadcasts one mask over the global batch."""
+    return torch.rand((1, 1, n, n), generator=generator, device=device) >= p
 
 
 class UpSampleBN(nn.Module):
@@ -108,7 +122,9 @@ class ResnetEncoderDecoder(nn.Module):
 class SelfAttention(nn.Module):
     """nn.MultiheadAttention's parameters (in_proj_weight [3E, E],
     in_proj_bias, out_proj) as plain matmul + softmax, dropout on the
-    attention weights."""
+    attention weights with one mask for every sample and head
+    (`attention_keep`), scaled by keep / (1 - p) in the weights' dtype, as
+    flax's dot_product_attention_weights does."""
 
     def __init__(self, dim: int, heads: int, dropout_rate: float):
         super().__init__()
@@ -125,7 +141,10 @@ class SelfAttention(nn.Module):
         q, k, v = (t.reshape(B, N, self.heads, hd).transpose(1, 2) for t in (q, k, v))
         scores = torch.matmul(q / math.sqrt(hd), k.transpose(-1, -2))
         attn = torch.softmax(scores.float(), dim=-1).to(v.dtype)
-        attn = dropout(attn, self.dropout_rate, self.training, generator)
+        p = self.dropout_rate
+        if self.training and p > 0.0:
+            keep = attention_keep(N, p, generator, attn.device)
+            attn = attn * (keep.to(attn.dtype) / torch.tensor(1.0 - p, dtype=attn.dtype))
         out = torch.matmul(attn, v).transpose(1, 2).reshape(B, N, E)
         return self.out_proj(out)
 
@@ -198,10 +217,14 @@ class SQLHead(nn.Module):
         queries = tokens[:, :Q]  # [B, Q, E]
 
         flat = self.conv3x3(x0).flatten(2).transpose(1, 2)  # [B, HW, E]
-        energy = torch.matmul(flat, queries.transpose(1, 2))  # [B, HW, Q]
-        attn = torch.softmax(energy.float(), dim=1).to(energy.dtype)
-        summary = torch.matmul(attn.transpose(1, 2), flat)  # [B, Q, E]
-        energy_maps = energy.transpose(1, 2).reshape(B, Q, H, W)
+        # the energies query-major, [B, Q, HW], so that the softmax over the
+        # pixels runs along the last axis: torch's CPU softmax backward over
+        # a leading axis of H*W entries lost precision (at 96x320, 4e-5 of
+        # the largest input gradient off JAX's, in float32 and float64)
+        energy = torch.matmul(queries, flat.transpose(1, 2))
+        attn = torch.softmax(energy.float(), dim=-1).to(energy.dtype)
+        summary = torch.matmul(attn, flat)  # [B, Q, E]
+        energy_maps = energy.reshape(B, Q, H, W)
 
         y = self.bins_regressor(summary.reshape(B, -1))
         y = F.relu(y.float()) + 0.1  # norm='linear'

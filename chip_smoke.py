@@ -54,7 +54,9 @@ In order, it
      schedule), with SQLdepth (128x512, dropout off), with MonoViT
      (drop-path off) and with DIFFNet; then MonoViT's drop-path on the card:
      the same generator seed gives the same train-mode output, another seed
-     another;
+     another; and the SQL head's dropout likewise, at 2 x 192x640, each
+     attention layer drawing one [1, 1, 120, 120] keep mask on the card
+     (flax's broadcast dropout), equal for two equal samples;
   8. trains the md2 main path at full width (640x192, batch 12, bf16
      networks): 3 steps of the late stage (F=7, scale 0, tri-min +
      incremental + partial + decomp, merged warp) and 2 of the early stage
@@ -1420,6 +1422,66 @@ def drop_path_phase(torch):
     torch.cuda.empty_cache()
 
 
+def sql_dropout_phase(torch):
+    """The SQL head (dropout 0.1) in train mode on the card, at 2 x 192x640
+    (120 patch tokens): each attention layer draws one [1, 1, 120, 120] keep
+    mask on the card from the forward's generator, flax's broadcast dropout;
+    two equal samples give equal depth only through such shared masks (the
+    feed-forward dropouts are per sample, so the head's input is made equal
+    and they are set to rate 0 for that check); a generator of the same seed
+    gives the same depth, another seed another; eval mode draws nothing."""
+    from baseboostdepth_tpu_torch.models import build_depth_net, sql
+
+    net = build_depth_net("sql", 50, torch.Generator().manual_seed(0)).cuda()
+    x = torch.rand(1, H, W, 3, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+    x = x.expand(2, -1, -1, -1).contiguous()
+    masks = []
+    draw = sql.attention_keep
+
+    def recorded(*args, **kwargs):
+        masks.append(draw(*args, **kwargs))
+        return masks[-1]
+
+    def depth(seed, train=True):
+        net.train(train)
+        with torch.no_grad():
+            return net(x, generator=torch.Generator("cuda").manual_seed(seed))[0]
+
+    sql.attention_keep = recorded
+    try:
+        a, b, c = depth(7), depth(7), depth(8)
+        check(len(masks) == 12 and all(m.shape == (1, 1, 120, 120) and m.is_cuda for m in masks),
+              f"SQL attention masks {[tuple(m.shape) for m in masks]}")
+        keep = float(torch.stack(masks).float().mean())
+        check(abs(keep - 0.9) <= 0.009, f"SQL attention masks keep {keep:.4f}, not 0.9 +- 1%")
+        # within 1e-5 of the largest depth where masks agree (cuDNN may pick
+        # another algorithm between calls); other masks move it by far more
+        tol = 1e-5 * float(a.abs().max())
+        check(float((a - b).abs().max()) <= tol,
+              "SQL dropout: the same generator seed gave other outputs")
+        check(float((a - c).abs().max()) > 1e2 * tol,
+              "SQL dropout: another generator seed gave the same outputs")
+        for m in net.modules():
+            if isinstance(m, sql.TransformerLayer):
+                m.dropout_rate = 0.0  # the per-sample feed-forward dropouts off
+        d = depth(7)
+        check(float((d[0] - d[1]).abs().max()) <= tol,
+              "SQL attention dropout differs between two equal samples")
+        masks.clear()
+        e7, e8 = depth(7, False), depth(8, False)
+        check(not masks, "SQL dropout drew masks in eval mode")
+        check(float((e7 - e8).abs().max()) <= tol,
+              "SQL eval mode: two generator seeds gave other outputs")
+    finally:
+        sql.attention_keep = draw
+    print(f"SQL dropout check: one [1, 1, 120, 120] attention mask a layer on the card (keep "
+          f"share {keep:.4f}), equal samples equal under it, train-mode depth equal for one "
+          f"generator seed, max |difference| {float((a - c).abs().max()):.3e} for another; "
+          "eval mode draws nothing")
+    del net
+    torch.cuda.empty_cache()
+
+
 def expected_launches(st, float_frames=False) -> dict:
     """Kernel launches per step that the step's structure implies. Per loss
     scale the main slots and the error poses (decomp under tri-min) are one
@@ -2374,6 +2436,7 @@ def main() -> int:
     parity_phase(torch, **MONOVIT)
     parity_phase(torch, **DIFFNET)
     drop_path_phase(torch)
+    sql_dropout_phase(torch)
     runs = {
         "probe_tool": probe_run,
         "late_F7": step_phase(torch, card, "late_F7", steps=3),

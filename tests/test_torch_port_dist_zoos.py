@@ -28,9 +28,12 @@ from a generator seeded 11:
 Held (measured on these inputs in brackets; none of the bounds is new):
   - replicas: both ranks' averaged gradients, parameters and BN statistics
     bit-equal, and their losses;
-  - the draws: drop-path's and dropout's masks, made through `draw_local`
-    on each rank, are the rank's rows of the one-process draws, bit for bit
-    (and the automask noise's);
+  - the draws: drop-path's and the feed-forward dropouts' masks, made
+    through `draw_local` on each rank, are the rank's rows of the
+    one-process draws, bit for bit (and the automask noise's); the SQL
+    head's attention-dropout masks, one [1, 1, N, N] mask a call shared by
+    the batch and the heads (flax's broadcast_dropout), are each the whole
+    one-process mask on every rank;
   - each step against one process, the whole-step bounds that ROADMAP.md,
     C states for the zoo: losses 1e-6 relative; gradients per entry 1e-4
     relative + 2e-5, per tensor 3e-2 relative L2 + 1e-7 RMS; BN statistics
@@ -42,12 +45,13 @@ Held (measured on these inputs in brackets; none of the bounds is new):
     gradients exceed 4e-5 (for a ResNet-50 tensor, 4e-5 plus its per-entry
     allowance, beyond which the two gradients' signs agree) to 1e-6 after
     the update. [loss / entries beyond the relative part / worst tensor's
-    relative L2 / BN statistics of the largest entry / parameters: monovit
-    0 / 8.9e-6 / 1.6e-2 / 1.8e-6 / 1.5e-8; diffnet 3.8e-7 / 7.6e-7 /
-    1.9e-3 / 1.6e-5 / 1.5e-8; cadepth 1.6e-7 / 2.8e-4 (its first conv, 0.7%
-    of its largest entry) / 2.5e-2 / 2.9e-5 / 6.0e-8; sql 1.5e-7 / 2.2e-5 /
-    1.9e-2 / 1.4e-5 / 6.0e-8.] DIFFNet held these bounds only once the
-    BatchNorm sums were taken in float64 (ops/batch_norm.py): with float32
+    relative L2 / BN statistics of the largest entry / parameters, measured
+    on the tree with float64 BN sums and the SQL head's broadcast attention
+    mask: monovit 9.4e-8 / 6.5e-7 / 3.1e-3 / 2.5e-7 / 7.5e-9; diffnet
+    1.9e-7 / 1.8e-6 / 1.7e-3 / 1.9e-6 / 1.5e-8; cadepth 1.6e-7 / 1.4e-5 /
+    1.8e-3 / 7.6e-6 / 1.5e-8; sql 0 / 1.6e-6 / 1.0e-3 / 0 / 6.0e-8.]
+    DIFFNet held these bounds only once the BatchNorm sums were taken in
+    float64 (ops/batch_norm.py): with float32
     sums its first conv's entries were 7.1e-5 beyond the relative part, the
     fast variance's autodiff cancelling in float32.
   - MonoViT's AdamW after `average_gradients_`: each parameter's update on
@@ -178,13 +182,31 @@ def recorded_draws(draws):
     return draw_local
 
 
+def recorded_attention_keep(masks):
+    """models/sql.py's attention_keep that also keeps a copy of each mask in
+    `masks` (wrapping the module's own function, not a recorder an earlier
+    zoo put in its place)."""
+    from baseboostdepth_tpu_torch.models import sql
+
+    draw = getattr(sql.attention_keep, "unrecorded", sql.attention_keep)
+
+    def attention_keep(*args, **kwargs):
+        out = draw(*args, **kwargs)
+        masks.append(out.detach().clone().numpy())
+        return out
+
+    attention_keep.unrecorded = draw
+    return attention_keep
+
+
 def run_zoo(name, patch):
     """One train step of zoo `name` on this process's rows of the global
     batch, from the port's init; `patch(module, attribute, value)` puts the
-    cut networks and the draw recorder in place. Returns the global loss,
+    cut networks and the draw recorders in place. Returns the global loss,
     the (averaged) gradients, the parameters and BN statistics after the
     step, the parameters before it with their AdamW group (lr, weight
-    decay), and the draws in order."""
+    decay), the draws of a batch's leading shape in order, and the SQL
+    head's attention-dropout masks in order."""
     from baseboostdepth_tpu_torch.models import monovit, sql
     from baseboostdepth_tpu_torch.models.pose import realistic_pose_bias_
     from baseboostdepth_tpu_torch.parallel import all_reduce_mean, broadcast_state_, local_rows
@@ -192,10 +214,11 @@ def run_zoo(name, patch):
 
     cfg = ZOOS[name]
     st = statics(cfg)
-    draws = []
+    draws, masks = [], []
     patch(step_mod, "build_depth_net", depth_net)
     for mod in (monovit, sql, step_mod):
         patch(mod, "draw_local", recorded_draws(draws))
+    patch(sql, "attention_keep", recorded_attention_keep(masks))
     state = step_mod.init_state(st, device="cpu", steps_per_epoch=10)
     realistic_pose_bias_(state.pose_net)
     broadcast_state_([state.depth_net, state.pose_net])
@@ -211,7 +234,7 @@ def run_zoo(name, patch):
         state, batch, generator=torch.Generator().manual_seed(GEN_SEED))
     return dict(loss=float(all_reduce_mean([metrics["loss"]])[0]), grads=named(state, "grads"),
                 params=named(state, "params"), buffers=named(state, "buffers"),
-                params0=params0, groups=groups, draws=draws)
+                params0=params0, groups=groups, draws=draws, masks=masks)
 
 
 # --------------------------------------------------------------------------
@@ -228,6 +251,7 @@ def child(rank: int, tmp: str) -> None:
         report[name] = {"loss": s["loss"], **{f"digest_{w}": digest(s[w])
                                               for w in ("grads", "params", "buffers")}}
         arrays.update({f"{name}/draws/{i}": d for i, d in enumerate(s["draws"])})
+        arrays.update({f"{name}/masks/{i}": m for i, m in enumerate(s["masks"])})
         if rank == 0:
             for w in ("grads", "params", "buffers"):
                 arrays.update({f"{name}/{w}/{n}": v for n, v in s[w].items()})
@@ -294,8 +318,9 @@ def test_replicas_are_bit_equal(runs):
 @pytest.mark.parametrize("name", list(ZOOS))
 def test_two_processes_match_one_process(runs, name):
     """The zoo's step in two processes against one process: the ranks' draws
-    are the rows of the one-process draws, and the step holds the zoo's
-    whole-step bounds (module docstring)."""
+    are the rows of the one-process draws, every rank's SQL attention mask
+    is the whole one-process mask, and the step holds the zoo's whole-step
+    bounds (module docstring)."""
     ref = runs["ref"][name]
     halves = [split(r["arrays"], f"{name}/draws/") for r in runs["ranks"]]
     assert len(halves[0]) == len(halves[1]) == len(ref["draws"]) > 0
@@ -304,6 +329,14 @@ def test_two_processes_match_one_process(runs, name):
         np.testing.assert_array_equal(got, whole, err_msg=f"{name} draw {i}")
     if name in ("monovit", "sql"):  # drop-path or dropout masks, then the automask noise
         assert len(ref["draws"]) > 1
+    # the SQL head's four layers draw one attention mask each
+    assert len(ref["masks"]) == (4 if name == "sql" else 0)
+    for r, rank in enumerate(runs["ranks"]):
+        masks = split(rank["arrays"], f"{name}/masks/")
+        assert len(masks) == len(ref["masks"])
+        for i, whole in enumerate(ref["masks"]):
+            assert whole.shape[:2] == (1, 1)
+            np.testing.assert_array_equal(masks[str(i)], whole, err_msg=f"{name} rank {r} mask {i}")
     floor, deep = BOUNDS[name]
     print("measured", name, check_step(
         _got(runs, name), ref, 0, name, loss_rtol=1e-6, grad_rtol=1e-4, grad_atol=2e-5,

@@ -159,7 +159,13 @@ def _close(actual, desired, rtol, atol=0.0, what=""):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_zoo_step_matches_jax(case, monkeypatch):
-    cfg = CASES[case]
+    check_zoo_step(CASES[case], monkeypatch)
+
+
+def check_zoo_step(cfg, monkeypatch):
+    """One step of the case `cfg` in both packages from the port's init
+    (module docstring's bounds); returns the port's state after its
+    backward and JAX's gradients as the port's state dicts (depth, pose)."""
     monkeypatch.setattr(jax_sql, "TransformerLayer", NoDropTransformerLayer)
     jst, tst = _statics(cfg)
     batch = _batch(cfg["H"], cfg["W"], cfg["B"], cfg["F"], cfg["f_max"], seed=cfg["F"] + 10)
@@ -219,6 +225,7 @@ def test_zoo_step_matches_jax(case, monkeypatch):
                 # 2e-4 in the ResNet-50 networks (module docstring)
                 floor = 2e-4 if deep else 1e-5
                 _close(buf.numpy(), ref, rtol=1e-4, atol=floor * np.abs(ref).max(), what=name)
+    return state, gd, gp
 
 
 def _port_loss_and_grads(st, batch, noise, seed=0):

@@ -38,6 +38,17 @@ def _thread_ids() -> list:
     return [int(t) for t in os.listdir("/proc/self/task")]
 
 
+def _thread_priorities() -> dict:
+    """{thread id: nice} of this process's threads. A thread listed in
+    /proc/self/task may end before its priority is read (a worker's pools
+    start and end threads of their own at any time): it is left out."""
+    out = {}
+    for tid in _thread_ids():
+        with contextlib.suppress(ProcessLookupError):
+            out[tid] = os.getpriority(os.PRIO_PROCESS, tid)
+    return out
+
+
 @contextlib.contextmanager
 def lowered_priority(increment: int = 19):
     """Every thread of this process at +increment inside the block (threads
@@ -50,7 +61,7 @@ def lowered_priority(increment: int = 19):
     XLA's thread pool, which would otherwise compute the port file's JAX
     references at normal priority (and a pool that the block created would
     stay lowered after it)."""
-    old = {tid: os.getpriority(os.PRIO_PROCESS, tid) for tid in _thread_ids()}
+    old = _thread_priorities()
     normal = os.getpriority(os.PRIO_PROCESS, 0)
     for tid, nice in old.items():
         _set_thread_priority(tid, min(nice + increment, 19))
