@@ -24,13 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from baseboostdepth_tpu_torch.models.depth_decoder import (
-    DEC_CHANNELS,
-    ConvBlock,
-    ReflectConv3x3,
-    reflect_pad1,
-)
+from baseboostdepth_tpu_torch.models.depth_decoder import DEC_CHANNELS, ConvBlock, ReflectConv3x3
 from baseboostdepth_tpu_torch.models.resnet import BatchNorm2d, ResnetEncoder
+from baseboostdepth_tpu_torch.ops.pad import reflect_pad1
 
 
 def spm(x: torch.Tensor) -> torch.Tensor:
@@ -47,7 +43,7 @@ def spm(x: torch.Tensor) -> torch.Tensor:
 
 class _ReflectPad1(nn.Module):
     """The reference's nn.ReflectionPad2d(1), with jnp.pad's repeat of a
-    length-1 axis (models/depth_decoder.py::reflect_pad1)."""
+    length-1 axis (ops/pad.py::reflect_pad1)."""
 
     def forward(self, x):
         return reflect_pad1(x)

@@ -17,17 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from baseboostdepth_tpu_torch.ops.pad import reflect_pad1
+
 DEC_CHANNELS = (16, 32, 64, 128, 256)
-
-
-def reflect_pad1(x: torch.Tensor) -> torch.Tensor:
-    """Pad H and W by one as jnp.pad(mode="reflect") does. torch's reflect
-    padding refuses an axis of length 1, where jnp.pad repeats the element
-    (a 32-pixel-high input reaches the coarsest decoder stage at height 1)."""
-    if x.shape[-1] > 1 and x.shape[-2] > 1:
-        return F.pad(x, (1, 1, 1, 1), mode="reflect")
-    x = F.pad(x, (1, 1, 0, 0), mode="reflect" if x.shape[-1] > 1 else "replicate")
-    return F.pad(x, (0, 0, 1, 1), mode="reflect" if x.shape[-2] > 1 else "replicate")
 
 
 class ReflectConv3x3(nn.Module):

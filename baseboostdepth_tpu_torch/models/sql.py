@@ -232,7 +232,11 @@ class SQLHead(nn.Module):
         prob = torch.softmax(self.convert_to_prob(energy_maps).float(), dim=1)
 
         bin_widths = F.pad((self.max_val - self.min_val) * y, (1, 0), value=self.min_val)
-        edges = torch.cumsum(bin_widths, dim=1)
+        # the cumulative sum as a masked sum: torch.cumsum of floats on the
+        # GPU has no deterministic form
+        n = bin_widths.shape[1]
+        lower = torch.ones(n, n, dtype=torch.bool, device=y.device).tril()
+        edges = torch.where(lower, bin_widths[:, None, :], 0.0).sum(dim=-1)
         centers = 0.5 * (edges[:, :-1] + edges[:, 1:])  # [B, dim_out]
         return (prob * centers[:, :, None, None]).sum(dim=1, keepdim=True)
 

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from baseboostdepth_tpu_torch.ops import absolute, clip
+from baseboostdepth_tpu_torch.ops.pad import reflect_pad1
 from baseboostdepth_tpu_torch.ops.ssim_cuda import reprojection_loss_fused
 
 _C1 = 0.01**2
@@ -22,8 +23,8 @@ _C2 = 0.03**2
 
 def ssim(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """x, y [B, H, W, C] -> per-pixel, per-channel [B, H, W, C] in [0, 1]."""
-    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
-    yp = F.pad(y.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    xp = reflect_pad1(x.permute(0, 3, 1, 2))
+    yp = reflect_pad1(y.permute(0, 3, 1, 2))
 
     def pool(t):
         return F.avg_pool2d(t, 3, 1)

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from baseboostdepth_tpu_torch.ops.cuda_build import launch, load_library
+from baseboostdepth_tpu_torch.ops.pad import pad1_adjoint
 
 LIB_NAME = "ssim"
 SOURCES = ("ssim_fused.cu",)
@@ -78,20 +79,10 @@ def _box_adjoint(v: torch.Tensor) -> torch.Tensor:
     Spread each window value over its 9 padded-domain taps (zero-padded box
     sum / 9 -> [..., H+2, W+2]), then fold the reflected border back
     (padded index -1 reflects to 1, H to H-2)."""
-    H, W = v.shape[-2:]
     vp = F.pad(v, (2, 2, 2, 2))
     r = vp[..., :, :-2] + vp[..., :, 1:-1] + vp[..., :, 2:]
     t = (r[..., :-2, :] + r[..., 1:-1, :] + r[..., 2:, :]) * (1.0 / 9.0)
-    out = t[..., 1:-1, 1:-1].clone()
-    out[..., 1, :] += t[..., 0, 1:-1]
-    out[..., H - 2, :] += t[..., H + 1, 1:-1]
-    out[..., :, 1] += t[..., 1:-1, 0]
-    out[..., :, W - 2] += t[..., 1:-1, W + 1]
-    out[..., 1, 1] += t[..., 0, 0]
-    out[..., 1, W - 2] += t[..., 0, W + 1]
-    out[..., H - 2, 1] += t[..., H + 1, 0]
-    out[..., H - 2, W - 2] += t[..., H + 1, W + 1]
-    return out
+    return pad1_adjoint(t)
 
 
 def ssim_fused_fwd_reference(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

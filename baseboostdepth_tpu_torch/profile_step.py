@@ -18,7 +18,8 @@ scale 0 only, as its trainer does), runs two warm-up steps, then traces
 `--steps` steps with torch.profiler and prints, per stage, one JSON line:
 wall ms/step (synchronized host clock), device busy ms/step (the sum of
 kernel times), the idle share, device time by kernel class, the top
-kernels and the kernel launches per step. Kernel classes are read from
+kernels, the kernel launches per step, and the host's own time (self CPU
+time) in all and by op, the top twelve. Kernel classes are read from
 kernel names, so they are approximate. `--photo_impl` and `--warp_impl` set
 the step's kernel options (StepStatic's defaults: xla, auto);
 `--float_frames` feeds the frames as float32 in [0, 1] (the synthetic uint8
@@ -182,6 +183,11 @@ def profile_stage(stage: str, steps: int, float_frames: bool = False, batch: int
             kernels[evt.key] = kernels.get(evt.key, 0.0) + us
             launches += evt.count
     busy_ms = sum(kernels.values()) / 1e3 / steps
+    host = {}  # the host's own time by op (self CPU time), where host-bound steps spend it
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CPU:
+            host[evt.key] = host.get(evt.key, 0.0) + evt.self_cpu_time_total
+    top_host = sorted(host.items(), key=lambda kv: -kv[1])[:12]
     classes = {}
     for name, us in kernels.items():
         cls = _kernel_class(name)
@@ -210,6 +216,8 @@ def profile_stage(stage: str, steps: int, float_frames: bool = False, batch: int
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "ms_per_step_by_class": dict(sorted(classes.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms_per_step": [[name[:90], us / 1e3 / steps] for name, us in top],
+        "host_self_ms_per_step": sum(host.values()) / 1e3 / steps,
+        "top_host_ops_ms_per_step": [[name[:90], us / 1e3 / steps] for name, us in top_host],
         "distinct_kernels": len(kernels),
         "kernel_launches_per_step": launches / steps,
     }

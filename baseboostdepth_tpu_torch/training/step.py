@@ -50,7 +50,7 @@ from torch import nn
 
 from baseboostdepth_tpu_torch import geometry, losses
 from baseboostdepth_tpu_torch.data.augment import apply_flip, color_jitter
-from baseboostdepth_tpu_torch.device import require_device
+from baseboostdepth_tpu_torch.device import deterministic, require_device
 from baseboostdepth_tpu_torch.models import DEPTH_IS_METRIC, build_depth_net, build_pose_net
 from baseboostdepth_tpu_torch.ops.resize import lanczos_pyramid, resize_bilinear
 from baseboostdepth_tpu_torch.ops.sampling import bilinear_sample, resolve_warp
@@ -491,20 +491,27 @@ def make_train_step(st: StepStatic, device="cuda"):
     the batch is this rank's rows, the gradients are averaged over the
     ranks before the update (`parallel.average_gradients_`), and the
     metrics are this rank's.
+
+    Each call runs in `device.deterministic()`: on one GPU, two runs from
+    the same state, batches and generator seeds end bit-equal, as the JAX
+    package's steps do. The mode is entered per call and left after it, so
+    every caller that trains (the Trainer, cli.train, the tools,
+    profile_step) runs under it, and no caller's flags change outside it.
     """
     device = require_device(device)
 
     def train_step(state: TrainState, batch, generator=None, noise=None):
-        tb = {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_forward(
-            state.depth_net, state.pose_net, tb, st, generator=generator, noise=noise
-        )
-        loss.backward()
-        average_gradients_([*state.depth_net.parameters(), *state.pose_net.parameters()])
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
+        with deterministic():
+            tb = {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, metrics = loss_forward(
+                state.depth_net, state.pose_net, tb, st, generator=generator, noise=noise
+            )
+            loss.backward()
+            average_gradients_([*state.depth_net.parameters(), *state.pose_net.parameters()])
+            state.optimizer.step()
+            state.scheduler.step()
+            state.step += 1
         return metrics
 
     return train_step

@@ -108,6 +108,17 @@ In order, it
      --dist.enabled under torch.distributed.run with one process (NCCL):
      one epoch and a resumed second, checkpoints from the lead; prints the
      NCCL version;
+ 11b. determinism (fault C5; every train step runs in device.deterministic(),
+     and the script sets CUBLAS_WORKSPACE_CONFIG before its first cuBLAS
+     call): each of the twelve kernels launched twice on the same inputs,
+     outputs torch.equal; every zoo, md2's fused and packed kernels and
+     float frames, 3 bf16 steps of the late and of the early stage at full
+     width, twice from the seed-0 state, every parameter, BN statistic,
+     optimizer tensor and loss torch.equal; cli.train's epoch 0 again into
+     another log directory, its checkpoint torch.equal to the trainer
+     phase's; the two gloo ranks' bf16 steps again, each rank's state
+     digest and losses the same; md2's late step timed with torch's NaN
+     fill of new tensors on and off;
  12. the port's user tools (synth_phase): tools.synthetic_benchmark renders
      a 30-frame synthetic scene at 640x192 under build/ and trains md2 on
      it (bf16, batch 12, 2 epochs: one step early, one late), its kernel
@@ -1682,6 +1693,18 @@ def write_trees(root: str, n_frames: int = 56, n_samples: int = 48) -> None:
     np.savetxt(os.path.join(root, "poses09.txt"), np.array(poses))
 
 
+def trainer_argv(root, model_name: str) -> list:
+    """cli.train's arguments at the default configuration on the trees under
+    `root`: one epoch into logs/`model_name`, a metrics line every 2 steps,
+    no image panels."""
+    return ["--data.kt_path", os.path.join(root, "raw"),
+            "--data.splits_dir", os.path.join(root, "splits"),
+            "--data.syns_path", os.path.join(root, "syns"),
+            "--log.log_dir", os.path.join(root, "logs"), "--log.model_name", model_name,
+            "--log.log_frequency", "2", "--log.image_panels", "False",
+            "--optim.num_epochs", "1"]
+
+
 def trainer_phase(torch, card, step_ms, root):
     """The training entry point at the default configuration (md2 RN18,
     640x192, batch 12, bf16, the full method with the curriculum, bucket_fs
@@ -1699,12 +1722,7 @@ def trainer_phase(torch, card, step_ms, root):
     from baseboostdepth_tpu_torch.native import native_available
     from baseboostdepth_tpu_torch.training.trainer import prefetch_to_device
 
-    argv = ["--data.kt_path", os.path.join(root, "raw"),
-            "--data.splits_dir", os.path.join(root, "splits"),
-            "--data.syns_path", os.path.join(root, "syns"),
-            "--log.log_dir", os.path.join(root, "logs"), "--log.model_name", "smoke",
-            "--log.log_frequency", "2", "--log.image_panels", "False",
-            "--optim.num_epochs", "1"]
+    argv = trainer_argv(root, "smoke")
     reset_launches()
     t0 = time.perf_counter()
     tr1 = cli.main(argv, device="cuda")
@@ -2030,7 +2048,21 @@ DIST_TIMEOUT_S = 600
 DIST_ZOOS = {"monovit": MONOVIT, "cadepth": CADEPTH, "diffnet": DIFFNET, "sql": SQL}
 
 
-def dist_child(rank: int, init: str, out: str) -> None:
+def state_digest(torch, state) -> str:
+    """SHA-256 of a TrainState's tensors (both networks' parameters and
+    buffers, the optimizer's state), in a fixed order, as bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    tensors = [*state.depth_net.state_dict().values(), *state.pose_net.state_dict().values()]
+    for _, slots in sorted(state.optimizer.state_dict()["state"].items()):
+        tensors += [v for _, v in sorted(slots.items()) if torch.is_tensor(v)]
+    for t in tensors:
+        h.update(t.detach().reshape(-1).cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_child(rank: int, init: str, out: str, steps_only: bool = False) -> None:
     """One rank of dist_phase (a), started by it as
     `chip_smoke.py --dist-child RANK INIT OUT`: both ranks on cuda:0 in a
     gloo group (NCCL refuses two ranks on one device). Rank 0 first
@@ -2041,8 +2073,10 @@ def dist_child(rank: int, init: str, out: str) -> None:
     the replicas bit-equal. Then
     3 bf16 steps of md2's late and 2 of its early stage, timed, with the
     kernel launch counters set to 0 just before each and read just after,
-    and the train-mode BatchNorm calls counted. Writes its results to OUT
-    (JSON)."""
+    and the train-mode BatchNorm calls counted, each ending in a digest of
+    the rank's state (determinism_phase runs the ranks again, `--dist-child
+    RANK INIT OUT steps`: the bf16 steps only, which must end in the same
+    digests). Writes its results to OUT (JSON)."""
     import torch
     import torch.distributed as dist
 
@@ -2052,16 +2086,21 @@ def dist_child(rank: int, init: str, out: str) -> None:
     from baseboostdepth_tpu_torch.training.step import main_path_static, make_train_step
 
     torch.cuda.set_device(0)
+    # as float32_step leaves them, so that the bf16 steps run under the
+    # same settings in both modes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     refs = {}
+    zoos = {} if steps_only else {"md2": {}, **DIST_ZOOS}
     if rank == 0:  # the one-process steps, before the group exists
-        for zoo, options in {"md2": {}, **DIST_ZOOS}.items():
+        for zoo, options in zoos.items():
             refs[zoo] = ps.float32_step("late_F7", B, **options)
             torch.cuda.empty_cache()
     dist.init_process_group("gloo", init_method=init, world_size=DIST_RANKS, rank=rank)
     try:
         result = {"rank": rank, "local_batch": B // DIST_RANKS}
-        for zoo, options in {"md2": {}, **DIST_ZOOS}.items():
+        for zoo, options in zoos.items():
             got = ps.float32_step("late_F7", B, **options)
             held = {"replicas_bit_equal": ps.replicas_equal(
                 [*got["params"].values(), *got["stats"].values(), *got["grads"].values()])}
@@ -2097,13 +2136,44 @@ def dist_child(rank: int, init: str, out: str) -> None:
                                 (sharding.all_reduce_sum.calls - calls) / steps,
                             "replicas_bit_equal": ps.replicas_equal(
                                 [*state.depth_net.state_dict().values(),
-                                 *state.pose_net.state_dict().values()])}
+                                 *state.pose_net.state_dict().values()]),
+                            "state_sha256": state_digest(torch, state)}
             del state, rows
             torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     with open(out, "w") as f:
         json.dump(result, f)
+
+
+def run_dist_children(root, tag, *mode) -> list:
+    """Start the DIST_RANKS ranks of dist_phase (a) (`dist_child`, in
+    processes of their own, a rendezvous file under `root` named by `tag`),
+    wait for them and return what each wrote."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    outs = [os.path.join(root, f"{tag}_rank{r}.json") for r in range(DIST_RANKS)]
+    init = f"file://{os.path.join(root, f'{tag}_rdv')}"
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-child",
+                               str(r), init, outs[r], *mode], cwd=here, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(DIST_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"{tag} rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return ranks
 
 
 def dist_phase(torch, card, root):
@@ -2126,29 +2196,9 @@ def dist_phase(torch, card, root):
 
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=here)
-    outs = [os.path.join(root, f"dist_rank{r}.json") for r in range(DIST_RANKS)]
-    init = f"file://{os.path.join(root, 'dist_rdv')}"
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-child",
-                               str(r), init, outs[r]], cwd=here, env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(DIST_RANKS)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    ranks = run_dist_children(root, "dist")
     gloo_s = time.perf_counter() - t0
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        check(p.returncode == 0, f"dist rank {r} exited {p.returncode}:\n{log[-3000:]}")
-    ranks = []
-    for path in outs:
-        with open(path) as f:
-            ranks.append(json.load(f))
     parity = {zoo: ranks[0][f"float32_{zoo}"] for zoo in ("md2", *DIST_ZOOS)}
     for zoo, held in parity.items():
         check(held["ok"] and all(r[f"float32_{zoo}"]["replicas_bit_equal"] for r in ranks),
@@ -2214,8 +2264,216 @@ def dist_phase(torch, card, root):
           f"the lead, logged losses {[round(m['loss'], 6) for m in logged]}; wall clock "
           f"{[round(w, 2) for w in walls]} s (process start, networks' init, 4 steps, "
           f"checkpoint) [{card}]")
+    repeat = {f"rank{r['rank']}_{name}": [r[name]["state_sha256"], r[name]["losses"]]
+              for r in ranks for name in ("late_F7", "early_F2")}
     return runs, {"gloo_float32_checks": parity, "gloo_s": gloo_s, "nccl": nccl,
+                  "bf16_states": repeat,
                   "cli_nccl_s": walls}
+
+
+# the zoos and options determinism_phase trains twice: every zoo, and md2's
+# kernel options and float frames
+DETERMINISM_RUNS = {"md2": {}, "md2_fused_packed": FUSED, "md2_float_frames": {},
+                    "md2_rn50": RN50, "cadepth": CADEPTH, "sql": SQL, "monovit": MONOVIT,
+                    "diffnet": DIFFNET}
+
+
+def trained_state(torch, stage, steps, float_frames=False, **options) -> dict:
+    """`steps` bf16 steps of one main-path stage at full width from the
+    seed-0 state (pose head biased to KITTI-scale motion), the synthetic
+    batch and generator seed 1, as step_phase trains them: every parameter,
+    buffer (BN statistics), Adam or AdamW moment and step, and the losses,
+    on the card."""
+    from baseboostdepth_tpu_torch.models.pose import realistic_pose_bias_
+    from baseboostdepth_tpu_torch.training.batch import synthetic_batch
+    from baseboostdepth_tpu_torch.training.step import init_state, main_path_static, \
+        make_train_step
+
+    st = main_path_static(stage, **options)
+    state = init_state(st, seed=0, device="cuda", steps_per_epoch=3317)
+    realistic_pose_bias_(state.pose_net)
+    batch = {k: torch.as_tensor(v).to("cuda")
+             for k, v in synthetic_batch(st.F, B, st.height, st.width, seed=st.F).items()}
+    if float_frames:
+        batch = as_float_frames(torch, batch)
+    step = make_train_step(st, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    losses = [step(state, batch, generator=gen)["loss"] for _ in range(steps)]
+    out = {"losses": torch.stack(losses)}
+    for net, m in (("depth", state.depth_net), ("pose", state.pose_net)):
+        out.update({f"{net}.{k}": v.detach().clone() for k, v in m.state_dict().items()})
+    for i, slots in state.optimizer.state_dict()["state"].items():
+        out.update({f"optimizer.{i}.{k}": v.clone() for k, v in slots.items()
+                    if torch.is_tensor(v)})
+    return out
+
+
+def unequal(torch, a: dict, b: dict) -> list:
+    """The keys where two dicts of tensors (or of other values) differ, bit
+    for bit."""
+    if a.keys() != b.keys():
+        return sorted(set(a) ^ set(b))
+    return [k for k in a if not (torch.equal(a[k], b[k]) if torch.is_tensor(a[k])
+                                 else a[k] == b[k])]
+
+
+def determinism_phase(torch, card, root, dist_stats=None) -> dict:
+    """Fault C5: training on the card is a function of its seeds, bit for
+    bit (`device.deterministic()` around every train step).
+    (a) each of the twelve kernels launched twice on the same inputs at the
+        main path's shapes: outputs torch.equal;
+    (b) every zoo and md2's options (DETERMINISM_RUNS) at full width
+        (640x192, batch 12, bf16): 3 steps of the late and of the early
+        stage, twice from the seed-0 state: parameters, BN statistics,
+        Adam's state and the losses torch.equal;
+    (c) cli.train's epoch 0 again into another log directory, at the
+        trainer phase's configuration: its checkpoint's tensors torch.equal
+        to the trainer phase's first one, its logged loss the same (run
+        alone, on a `root` without them, it writes the trees and trains
+        that first epoch itself);
+    (d) the two gloo ranks of dist_phase (a) again, their bf16 steps only:
+        each rank's state (SHA-256 of its tensors) and losses the same as
+        in dist_phase (`dist_stats`; run alone, the ranks' bf16 steps
+        twice);
+    (e) the cost of torch's NaN fill of new tensors under its
+        deterministic mode (torch.utils.deterministic.fill_uninitialized_
+        memory), which device.deterministic() leaves off: md2's late step
+        timed as it runs and with the fill turned on inside its mode, in
+        turns.
+    Any difference fails the script."""
+    import contextlib
+
+    import torch.utils.deterministic as det
+
+    from baseboostdepth_tpu_torch import device as device_mod
+    from baseboostdepth_tpu_torch import profile_step as ps
+    from baseboostdepth_tpu_torch.cli import train as cli
+    from baseboostdepth_tpu_torch.training import step as step_mod
+    from baseboostdepth_tpu_torch.ops.batch_norm import bn_sums
+    from baseboostdepth_tpu_torch.tools import pallas_probe as tool
+    from baseboostdepth_tpu_torch.training.checkpoint import CheckpointManager
+    from baseboostdepth_tpu_torch.training.step import main_path_static, make_train_step
+
+    fill = det.fill_uninitialized_memory
+    t0 = time.perf_counter()
+    # (a) the kernels, twice each
+    fns = kernel_wrappers()
+    inp = noise_grid(torch)
+    frames, x, y, ct = (inp[n] for n in ("frames", "x", "y", "ct"))
+    planes = frames.to(torch.float32) / 255.0
+    (pred, tgt, g), _ = ssim_inputs(torch, (B * 7, H, W), seed=0)
+    calls = {"corner_sweep": (frames, x, y), "warp_packed_fwd": (frames, x, y),
+             "warp_packed_bwd": (frames, x, y, ct), "warp_planes_fwd": (planes, x, y),
+             "warp_planes_bwd": (planes, x, y, ct), "ssim_fused_fwd": (pred, tgt),
+             "ssim_fused_bwd": (pred, tgt, g)}
+    for case in tool.probe_cases():
+        calls.setdefault(f"probe_{case.op}", [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                                             for a in case.args])
+    check(calls.keys() == set(KERNELS), f"determinism (a): kernels {sorted(calls)}")
+    kernels = {}
+    for name, args in calls.items():
+        first, second = fns[name](*args), fns[name](*args)
+        first, second = ((first,), (second,)) if torch.is_tensor(first) else (first, second)
+        kernels[name] = all(torch.equal(u, v) for u, v in zip(first, second))
+    bn_in = torch.randn((B * 18, 64, 96, 320), device="cuda", dtype=torch.bfloat16,
+                        generator=torch.Generator(device="cuda").manual_seed(3))
+    bn_in = bn_in.contiguous(memory_format=torch.channels_last)
+    kernels["bn_sums"] = torch.equal(bn_sums(bn_in), bn_sums(bn_in))
+    check(all(kernels.values()), f"determinism (a): kernels twice on the same inputs {kernels}")
+    del inp, frames, x, y, ct, planes, pred, tgt, g, calls, bn_in
+    torch.cuda.empty_cache()
+    print(f"determinism (a): each of the {len(kernels)} kernels twice on the same inputs "
+          f"(the main path's shapes), outputs torch.equal: {json.dumps(kernels)}")
+
+    # (b) every zoo and md2's options, both stages, twice
+    trained = {}
+    for name, options in DETERMINISM_RUNS.items():
+        for stage in ("late_F7", "early_F2"):
+            kw = dict(float_frames=name == "md2_float_frames", **options)
+            first = trained_state(torch, stage, 3, **kw)
+            second = trained_state(torch, stage, 3, **kw)
+            diff = unequal(torch, first, second)
+            check(not diff, f"determinism (b) {name} {stage}: differ at {diff[:8]}")
+            trained[f"{name} {stage}"] = [len(first), first["losses"].tolist()]
+            del first, second
+            torch.cuda.empty_cache()
+    print(f"determinism (b): 3 bf16 steps at 640x192, batch 12, twice from the seed-0 state, "
+          f"torch.equal in every tensor (parameters, BN statistics, optimizer state, losses): "
+          f"{json.dumps({k: f'{n} tensors, losses {v}' for k, (n, v) in trained.items()})}")
+
+    # (c) cli.train's epoch 0 again, into another log directory
+    if not os.path.isdir(os.path.join(root, "logs", "smoke")):  # run alone
+        if not os.path.isdir(os.path.join(root, "raw")):
+            write_trees(root)
+        cli.main(trainer_argv(root, "smoke"), device="cuda")
+    tr = cli.main(trainer_argv(root, "smoke_repeat"), device="cuda")
+    saved = {}
+    for name in ("smoke", "smoke_repeat"):
+        ckpt = CheckpointManager(os.path.join(root, "logs", name, "checkpoints"))
+        payload, _ = ckpt.restore(None, step=tr.steps_per_epoch)
+        flat = {"step": torch.tensor(payload["step"])}
+        for part in ("depth_net", "pose_net"):
+            flat.update({f"{part}.{k}": v for k, v in payload[part].items()})
+        for i, slots in payload["optimizer"]["state"].items():
+            flat.update({f"optimizer.{i}.{k}": v for k, v in slots.items()})
+        with open(os.path.join(root, "logs", name, "metrics.jsonl")) as f:
+            flat["loss"] = torch.tensor(json.loads(f.readline())["loss"])
+        saved[name] = flat
+    diff = unequal(torch, saved["smoke"], saved["smoke_repeat"])
+    check(not diff, f"determinism (c): cli.train epoch 0 twice, checkpoints differ at {diff[:8]}")
+    del tr
+    torch.cuda.empty_cache()
+    print(f"determinism (c): cli.train epoch 0 twice ({len(saved['smoke'])} checkpoint tensors "
+          f"and the logged loss {float(saved['smoke']['loss']):.7f}), torch.equal")
+
+    # (d) the gloo ranks' bf16 steps again
+    def bf16_states(tag):
+        return {f"rank{r['rank']}_{name}": [r[name]["state_sha256"], r[name]["losses"]]
+                for r in run_dist_children(root, tag, "steps")
+                for name in ("late_F7", "early_F2")}
+
+    first = dist_stats["bf16_states"] if dist_stats else bf16_states("dist_first")
+    again = bf16_states("dist_repeat")
+    check(again == first, f"determinism (d): gloo ranks again {again}, first {first}")
+    print(f"determinism (d): {DIST_RANKS} gloo ranks' bf16 late and early steps again, each "
+          f"rank's state SHA-256 and losses the same: {json.dumps(again)}")
+
+    # (e) the fill of new tensors, on and off, in turns
+    @contextlib.contextmanager
+    def deterministic_with_fill():
+        with device_mod.deterministic():
+            det.fill_uninitialized_memory = True
+            yield
+
+    st = main_path_static("late_F7")
+    fill_ms = {True: [], False: []}
+    try:
+        for on in (True, False, False, True):
+            step_mod.deterministic = deterministic_with_fill if on else device_mod.deterministic
+            state, rows = ps.main_path_state(st, torch.device("cuda", 0), B)
+            step = make_train_step(st, device="cuda")
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            step(state, rows, generator=gen)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(3):
+                step(state, rows, generator=gen)
+            torch.cuda.synchronize()
+            fill_ms[on].append((time.perf_counter() - t1) * 1e3 / 3)
+            del state, rows
+    finally:
+        step_mod.deterministic = device_mod.deterministic
+    check(det.fill_uninitialized_memory == fill, "determinism (e): the fill not restored")
+    torch.cuda.empty_cache()
+    print(f"timing determinism (e): md2 late_F7 ms/step (host clock over 3 steps after one, "
+          f"in turns with, without, without, with) with torch's NaN fill of new tensors "
+          f"{[round(v, 2) for v in fill_ms[True]]}, without (as the step runs) "
+          f"{[round(v, 2) for v in fill_ms[False]]} [{card}]")
+    seconds = time.perf_counter() - t0
+    print(f"determinism: phase took {seconds:.1f} s")
+    return {"kernels_twice_equal": kernels, "runs_twice_equal": sorted(trained),
+            "cli_train_twice_equal": True, "gloo_ranks_twice_equal": True,
+            "fill_ms": {"on": fill_ms[True], "off": fill_ms[False]}, "seconds": seconds}
 
 
 def finite_metrics(what, result: dict) -> dict:
@@ -2400,6 +2658,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
 
+    from baseboostdepth_tpu_torch.device import CUBLAS_WORKSPACE_CONFIG
+
+    # before the first cuBLAS call: cuBLAS reads it when torch makes a handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE_CONFIG)
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False  # fp32 convs of the parity phase in full fp32
@@ -2487,6 +2749,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         dist_runs, dist_stats = dist_phase(torch, card, root)
         runs.update(dist_runs)
+        determinism = determinism_phase(torch, card, root, dist_stats)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_synth_", dir=build_dir) as root:
         runs["synth"] = synth_phase(torch, card, root)
     launches = {n: sum(r["launches"][n] for r in runs.values()) for n in KERNELS}
@@ -2524,6 +2787,7 @@ def main() -> int:
     check(bn_stats["launches"] > 0, "bn_sums never launched on the main path")
     print(f"eval path: {json.dumps(evals)} [{card}]")
     print(f"dist: {json.dumps(dist_stats)} [{card}]")
+    print(f"determinism: {json.dumps(determinism)} [{card}]")
     print("bn_sums (no TPU counterpart: flax's BatchNorm statistics, "
           f"baseboostdepth_tpu_torch/ops/csrc/bn_sums.cu): {json.dumps(bn_stats)} [{card}]")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start of main to the "
@@ -2538,6 +2802,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-child"]:
-        dist_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        dist_child(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5:] == ["steps"])
         sys.exit(0)
     sys.exit(main())

@@ -13,6 +13,10 @@ test_torch_port_dist_zoos.py) start themselves as the ranks of a gloo
 group in child processes (`ranks_running`, `wait_ranks`); the children
 save what they saw, and the tests hold it against one process
 (`check_step`).
+
+The determinism files (test_torch_port_determinism*.py) record the ATen
+ops of a training step (`OpRecorder`) and hold them against the ops torch
+has no deterministic CUDA form for (`NO_DETERMINISTIC_CUDA`).
 """
 
 import contextlib
@@ -22,6 +26,8 @@ import numpy as np
 import os
 import subprocess
 import sys
+
+from torch.utils._python_dispatch import TorchDispatchMode
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD_TIMEOUT_S = 120
@@ -193,3 +199,60 @@ def check_step(got, ref, k, what, loss_rtol, grad_rtol, grad_atol, leaf_rtol, le
                                    err_msg=f"{what} step {k} {n}")
         worst["stats"] = max(worst["stats"], float(np.abs(v - r).max() / np.abs(r).max()))
     return worst
+
+
+# The ops that torch.use_deterministic_algorithms documents as having no
+# deterministic CUDA implementation (it raises on them), as of torch
+# 2.13.0's docstring, by ATen name, each with the case that raises (None:
+# every call); plus replication_pad*d_backward, which that docstring counts
+# as deterministic but whose CUDA kernels add with atomics in older
+# releases (the card's machine runs torch 2.11.0) and which the step
+# reached until ops/pad.py folded the length-1 pad itself.
+def _arg(func, args, kwargs, name):
+    names = [a.name for a in func._schema.arguments]
+    i = names.index(name)
+    return args[i] if i < len(args) else kwargs.get(name)
+
+
+NO_DETERMINISTIC_CUDA = {
+    **dict.fromkeys((
+        "avg_pool3d_backward", "_adaptive_avg_pool2d_backward", "_adaptive_avg_pool3d_backward",
+        "adaptive_max_pool2d_backward", "fractional_max_pool2d_backward",
+        "fractional_max_pool3d_backward", "max_unpool2d", "max_unpool3d",
+        "upsample_linear1d_backward", "upsample_bilinear2d_backward",
+        "_upsample_bilinear2d_aa_backward", "upsample_bicubic2d_backward",
+        "_upsample_bicubic2d_aa_backward", "upsample_trilinear3d_backward",
+        "reflection_pad1d_backward", "reflection_pad2d_backward", "reflection_pad3d_backward",
+        "replication_pad1d_backward", "replication_pad2d_backward",
+        "replication_pad3d_backward", "nll_loss_forward", "nll_loss2d_forward",
+        "_ctc_loss_backward", "put", "put_", "histc", "grid_sampler_2d_backward",
+        "grid_sampler_3d_backward")),
+    "_embedding_bag_backward": lambda f, a, k: _arg(f, a, k, "mode") == 2,  # max
+    "bincount": lambda f, a, k: _arg(f, a, k, "weights") is not None,
+    "median": lambda f, a, k: "dim" in [x.name for x in f._schema.arguments],
+    "nanmedian": lambda f, a, k: "dim" in [x.name for x in f._schema.arguments],
+    "cumsum": lambda f, a, k: a[0].is_floating_point() or a[0].is_complex(),
+    "cumsum_": lambda f, a, k: a[0].is_floating_point() or a[0].is_complex(),
+    "scatter_reduce": lambda f, a, k: _arg(f, a, k, "reduce") == "prod",
+}
+
+
+class OpRecorder(TorchDispatchMode):
+    """Records every ATen op dispatched inside the block (forward, and the
+    backward that autograd runs in the same process), by name, and which of
+    them NO_DETERMINISTIC_CUDA refuses (`refused`)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = set()
+        self.refused = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func.overloadpacket.__name__
+        self.ops.add(name)
+        if name in NO_DETERMINISTIC_CUDA:
+            case = NO_DETERMINISTIC_CUDA[name]
+            if case is None or case(func, args, kwargs):
+                self.refused.add(name)
+        return func(*args, **kwargs)
