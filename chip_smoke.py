@@ -128,6 +128,11 @@ In order, it
      tools.verify_reference_parity --pretrained_start for monovit on
      replica bytes, and --weights on the trained state saved in the
      reference's layout against cli.evaluate_depth's abs_rel;
+ 12b. the JAX package's CPU convergence recipe on the card
+     (convergence_phase): 56 frames at 64x192, the epoch-8 stage, bf16
+     with the disparity bias at -2.2, from the port's seed-0 init, batch
+     12, 100 steps; its launches counted, and the recipe's four criteria
+     (loss, abs_rel twice, a1) held;
  13. prints timings (CUDA events, after warm-up) beside the card's name and
      power limit, bn_sums' line (its checks, times and launches on the
      main path), a JSON line describing each kernel, and last
@@ -2042,6 +2047,104 @@ def synth_phase(torch, card, root):
             "result": result, "ate": ates}
 
 
+CONVERGENCE_FRAMES, CONVERGENCE_STEPS = 56, 100  # the JAX package's CPU recipe
+
+
+def convergence_phase(torch, card, root):
+    """The JAX package's CPU convergence recipe
+    (tests/test_synthetic_convergence.py) on the card: CONVERGENCE_FRAMES
+    frames of SyntheticScene(0) at 64x192 in KITTI layout (rendered in a
+    process per core), the curriculum's epoch-8 stage (F=2, scales 0-1,
+    tri-min, decomp), bf16 networks from the port's seed-0 init with the
+    disparity heads' bias at -2.2 (the JAX record's remedy for the
+    constant-depth plateau), Adam at a flat 1e-4, batch 12,
+    CONVERGENCE_STEPS steps, each new loader's seed and each step's
+    generator seed drawn from np.random.default_rng(0) in the recipe's
+    order; the kernels' launches counted and held to expected_launches;
+    the recipe's four criteria: the mean of the last 5 losses under 0.6 x
+    the first, abs_rel under 0.75 x its init and under 0.45, a1 above its
+    init + 0.15 (median scaling on the 8 val frames)."""
+    import cv2
+
+    from baseboostdepth_tpu_torch.data import kitti
+    from baseboostdepth_tpu_torch.data.curriculum import stage_for_epoch
+    from baseboostdepth_tpu_torch.data.loader import EvalLoader, KittiTrainLoader
+    from baseboostdepth_tpu_torch.data.synthetic import SyntheticScene, materialize_kitti_layout
+    from baseboostdepth_tpu_torch.evaluation.metrics import METRIC_NAMES, single_image_errors
+    from baseboostdepth_tpu_torch.ops.batch_norm import bn_sums
+    from baseboostdepth_tpu_torch.training.step import (
+        StepStatic,
+        init_disp_bias,
+        init_state,
+        make_eval_forward,
+        make_train_step,
+    )
+
+    height, width, batch_size = 64, 192, 12
+    t0 = time.perf_counter()
+    root, splits = materialize_kitti_layout(
+        root, n_frames=CONVERGENCE_FRAMES, width=width, height=height, seed=0, margin=7,
+        val_fraction=0.2, scene=SyntheticScene(seed=0), workers=len(os.sched_getaffinity(0)))
+    render_s = time.perf_counter() - t0
+    split = os.path.join(splits, "synth")
+    index = kitti.KittiRawIndex(root, os.path.join(split, "train_files_baselines.txt"))
+    val = kitti.KittiRawIndex(root, os.path.join(split, "val_files.txt"))
+    paths = [val.image_path(s.folder, s.frame_index, s.side) for s in val.samples]
+    gt = np.load(os.path.join(split, "gt_depths.npz"))["data"]
+    stage = stage_for_epoch(8, trimin=True)
+    st = StepStatic(height=height, width=width, F=stage.F, scales=(0, 1), trimin=True,
+                    incremental=False, partial=False, decomp=True, dtype="bfloat16")
+    state = init_state(st, seed=0, device="cuda", steps_per_epoch=10**6)
+    init_disp_bias(state.depth_net, -2.2)
+    step = make_train_step(st, device="cuda")
+    fwd = make_eval_forward(st, "cuda")
+
+    def score() -> dict:
+        totals, n = np.zeros(len(METRIC_NAMES)), 0
+        for imgs, start, cnt in EvalLoader(paths, height, width, batch_size=8):
+            depth = fwd(state.depth_net, imgs.astype(np.float32) / 255.0).float().cpu().numpy()
+            for j in range(cnt):
+                g = gt[start + j]
+                totals += np.array(single_image_errors(cv2.resize(depth[j], g.shape[::-1]), g))
+                n += 1
+        return dict(zip(METRIC_NAMES, (totals / n).tolist()))
+
+    init_m = score()
+    rng = np.random.default_rng(0)
+    losses = []
+    reset_launches()
+    t1 = time.perf_counter()
+    while len(losses) < CONVERGENCE_STEPS:
+        for batch in KittiTrainLoader(index, stage, batch_size, height, width, trimin=True,
+                                      use_stereo=True, num_workers=2,
+                                      seed=int(rng.integers(2**31)), use_native=False):
+            gen = torch.Generator("cuda").manual_seed(int(rng.integers(2**31)))
+            losses.append(float(step(state, batch, generator=gen)["loss"]))
+            if len(losses) == CONVERGENCE_STEPS:
+                break
+    train_s = time.perf_counter() - t1
+    launches, bn_launches = read_launches(), bn_sums.launches
+    final_m = score()
+    expect = {n: CONVERGENCE_STEPS * c for n, c in expected_launches(st).items()}
+    check(launches == expect, f"convergence: kernel launches {launches}, expected {expect}")
+    check(bn_launches > 0, "convergence: bn_sums never launched")
+    check(all(np.isfinite(losses)), "convergence: a loss is not finite")
+    last5 = float(np.mean(losses[-5:]))
+    check(last5 < 0.6 * losses[0], f"convergence: loss {losses[0]:.4f} -> {last5:.4f}")
+    check(final_m["abs_rel"] < 0.75 * init_m["abs_rel"] and final_m["abs_rel"] < 0.45
+          and final_m["a1"] > init_m["a1"] + 0.15,
+          f"convergence: abs_rel {init_m['abs_rel']:.4f} -> {final_m['abs_rel']:.4f}, a1 "
+          f"{init_m['a1']:.4f} -> {final_m['a1']:.4f}")
+    print(f"convergence: {CONVERGENCE_STEPS} steps of the recipe (bf16, bias -2.2): loss "
+          f"{losses[0]:.4f} -> {last5:.4f}, abs_rel {init_m['abs_rel']:.4f} -> "
+          f"{final_m['abs_rel']:.4f}, a1 {init_m['a1']:.4f} -> {final_m['a1']:.4f}; "
+          f"corner_sweep {launches['corner_sweep']} launches; render {render_s:.1f} s "
+          f"({CONVERGENCE_FRAMES} frames x2 cams), {1e3 * train_s / CONVERGENCE_STEPS:.1f} "
+          f"ms/step with the loader, phase {time.perf_counter() - t0:.1f} s [{card}]")
+    return {"launches": launches, "bn_sums_launches": bn_launches, "init": init_m,
+            "final": final_m}
+
+
 DIST_RANKS = 2  # dist_phase (a): two ranks on the one card
 DIST_TIMEOUT_S = 600
 # the zoos whose float32 step dist_phase (a) also holds to one process
@@ -2752,6 +2855,8 @@ def main() -> int:
         determinism = determinism_phase(torch, card, root, dist_stats)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_synth_", dir=build_dir) as root:
         runs["synth"] = synth_phase(torch, card, root)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe_", dir=build_dir) as root:
+        runs["convergence"] = convergence_phase(torch, card, root)
     launches = {n: sum(r["launches"][n] for r in runs.values()) for n in KERNELS}
     check(all(launches.values()), f"a kernel of the path never launched: {launches}")
 

@@ -16,7 +16,8 @@ of the head, pose), each part's parameter change over the run relative to
 its initial norm, the median and the 5th and 95th percentiles of the
 predicted depth (metric for SQLdepth) over the first 8 validation images
 before training and after every epoch, and the card's name and power
-limit. It writes no checkpoint (a run would write ~5 GB). Variants, each
+limit. It writes no checkpoint (an sql run would write ~5 GB) but, with
+`--keep-checkpoint`, the one at the end of the last epoch. Variants, each
 applied after the Trainer is built and before its first score:
 `--init-state` loads both networks from a file of {"depth": state_dict,
 "pose": state_dict} (tests/torch_port_c4.py jax-init writes the JAX
@@ -25,6 +26,13 @@ would from seed J, `--head-dropout` sets every dropout rate of an SQLdepth
 head, `--trainer-seed` gives the Trainer another seed (its init, its
 loader's order and its step draws) on the scene of the tool's seed; the
 init options act after it, so that one init trains under several streams.
+
+    python tests/torch_port_c4_record.py pose OUT.json [--ckpt DIR]
+
+scores the checkpoint under DIR (a run's `logs/<name>/checkpoints`, kept by
+--keep-checkpoint), or without --ckpt the untrained network, with
+tools/synthetic_pose_eval on its default sequence (80 frames at 192x64)
+and writes its ATEs.
 
     python tests/torch_port_c4_record.py card-vs-cpu OUT.json
         [--steps 8] [--batch 4] [--init-state FILE]
@@ -129,7 +137,9 @@ def record_run(opts, device) -> dict:
             st.optimizer.step = recorded_step
 
         def _save(self, global_step, extra):
-            pass
+            if opts.keep_checkpoint and extra.get("epoch_complete") \
+                    and extra["epoch"] == self.cfg.optim.num_epochs - 1:
+                super()._save(global_step, extra)
 
         def _train_epoch(self, epoch, t0, stop_requested):
             going_on = super()._train_epoch(epoch, t0, stop_requested)
@@ -179,6 +189,7 @@ def record_run(opts, device) -> dict:
     finally:
         sb.EpochTimedTrainer, sb.make_config = trainer_cls, make_config
     tr = trainers[0]
+    record["log_path"] = tr.log_path
     change, norm = {}, {}
     for (part, p), p0 in zip(tr.parts, tr.start):
         change[part] = change.get(part, 0.0) + float((p.detach().float() - p0.float()).pow(2).sum())
@@ -242,6 +253,15 @@ def card_vs_cpu(opts, device) -> dict:
             "grad_diff_rel": {k: (diff[k] / max(norm["cpu"][k], 1e-30)) ** 0.5 for k in diff}}
 
 
+def pose(opts, device) -> dict:
+    """tools/synthetic_pose_eval on its default sequence (80 frames at
+    192x64) for the checkpoint under --ckpt, or the untrained network."""
+    from baseboostdepth_tpu_torch.tools import synthetic_pose_eval
+
+    argv = ["--untrained"] if opts.ckpt is None else ["--ckpt", opts.ckpt]
+    return {"ckpt": opts.ckpt, **synthetic_pose_eval.main(argv, device=device)}
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     argv = list(sys.argv[1:] if argv is None else argv)
     bench = []
@@ -249,13 +269,15 @@ def parse_args(argv=None) -> argparse.Namespace:
         i = argv.index("--")
         argv, bench = argv[:i], argv[i + 1:]
     ap = argparse.ArgumentParser()
-    ap.add_argument("what", choices=["run", "card-vs-cpu"])
+    ap.add_argument("what", choices=["run", "card-vs-cpu", "pose"])
     ap.add_argument("out")
     init = ap.add_mutually_exclusive_group()
     init.add_argument("--init-state", default=None)
     init.add_argument("--init-seed", type=int, default=None)
     ap.add_argument("--head-dropout", type=float, default=None)
     ap.add_argument("--trainer-seed", type=int, default=None)
+    ap.add_argument("--keep-checkpoint", action="store_true")
+    ap.add_argument("--ckpt", default=None)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--root", default="logs/synth_scene")
@@ -268,7 +290,7 @@ def main(argv=None, device="cuda") -> dict:
     device = require_device(device)
     opts = parse_args(argv)
     t0 = time.time()
-    out = record_run(opts, device) if opts.what == "run" else card_vs_cpu(opts, device)
+    out = {"run": record_run, "card-vs-cpu": card_vs_cpu, "pose": pose}[opts.what](opts, device)
     out["seconds"] = time.time() - t0
     out["device"] = describe(device)
     with open(opts.out, "w") as f:
